@@ -1,0 +1,143 @@
+"""Build, load and self-test the port's CUDA kernels.
+
+The counterpart of `falcon_r1cs_tpu/ops/pallas_support.py`.  The sources
+under `csrc/` are compiled with `nvcc` for sm_90a into one shared library
+with a plain C interface, at first use, into `build/kernels/` beside the
+package (a directory git ignores), under a name keyed by a hash of the
+sources and the flags.  The library is loaded with ctypes.  Right after
+loading, the x + 1 kernel (`add_one`, the port of the Pallas capability
+probe) runs once and the load raises if its result is wrong.
+
+This is not a probe that picks a fallback: a failed build, load or
+self-test raises, and nothing here runs on a machine without a CUDA card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ARGTYPES = {
+    "ntt_hints_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "intt_ntt_hints_launch": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P,
+    ],
+    "add_one_launch": [_P, _P, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (Path(cuda_home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError(f"nvcc not found (CUDA_HOME={cuda_home}, PATH)")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(_CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return _BUILD_DIR / f"libfalcon_r1cs_kernels_{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels if the keyed library is missing.
+
+    Returns (library path, seconds spent compiling, nvcc's log).  The
+    compile writes to a temporary file and renames it into place, so a
+    concurrent or interrupted build never leaves a partial library."""
+    so = library_path()
+    if so.exists():
+        return so, 0.0, ""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    srcs = [str(s) for s in sorted(_CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)
+    return so, seconds, proc.stdout + proc.stderr
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def _launch_add_one(lib: ctypes.CDLL, x: torch.Tensor) -> torch.Tensor:
+    out = torch.empty_like(x)
+    rc = lib.add_one_launch(
+        x.data_ptr(), out.data_ptr(), x.numel(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check_launch(rc, "add_one_launch")
+    add_one.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernel library, loaded and self-tested once per process."""
+    so, _, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    x = torch.arange(8 * 128, dtype=torch.int32, device="cuda").reshape(8, 128)
+    out = _launch_add_one(lib, x)
+    if not torch.equal(out, x + 1):
+        raise RuntimeError("kernel library self-test (x + 1) failed")
+    return lib
+
+
+def add_one(x: torch.Tensor) -> torch.Tensor:
+    """x + 1 on a contiguous int32 tensor: the CUDA kernel for a CUDA
+    tensor, plain torch for a CPU tensor."""
+    if x.dtype != torch.int32 or not x.is_contiguous():
+        raise ValueError("add_one wants a contiguous int32 tensor")
+    if x.device.type == "cpu":
+        return add_one.plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"add_one: unsupported device {x.device}")
+    lib = library()
+    with torch.cuda.device(x.device):
+        return _launch_add_one(lib, x)
+
+
+add_one.launches = 0
+add_one.plain = lambda x: x + 1

@@ -1,0 +1,171 @@
+"""Wrappers, launch counters and host tables of the hand-written CUDA hint
+kernels in `csrc/ntt_hints.cu`.
+
+The counterpart of `falcon_r1cs_tpu/ops/pallas_ntt.py`:
+
+- `ntt_with_hints_cuda` launches `ntt_hints_kernel` (the port of
+  `_make_kernel`, K1): (B, n) int32 in [0, q) -> t (11, B, n), b (B, n).
+- `intt_ntt_hints_cuda` launches `intt_ntt_hints_kernel` (the port of
+  `_make_kernel_vchain`, K2): NTT-domain w (B, n) -> t, b and v = INTT(w).
+
+Each wrapper takes its plain torch version (`.plain`, from ops/ntt_limb.py)
+for a CPU tensor, launches its kernel for a CUDA tensor, and raises for
+anything else; there is no fallback from a CUDA tensor to the plain path.
+`.launches` counts kernel launches.
+
+The host tables are built from the same `params.py` sources as the JAX
+package's and compared with them in the tests.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from falcon_r1cs_tpu.params import FalconParams, Q, get_params
+
+from . import _build
+from .limbs import LIMB_BITS, NUM_LIMBS, int_to_limbs
+from .ntt_limb import intt_with_hints, ntt_with_hints
+
+_INV_Q_F32 = float(np.float32(1.0 / Q))
+
+# 16-bit Montgomery constants of the INTT prologue: QINV16 = -q^-1 mod
+# 2^16, split into 8-bit halves so every in-kernel product stays < 2^24
+_QINV16 = (-pow(Q, -1, 1 << 16)) % (1 << 16)
+_QINV16_LO = _QINV16 & 0xFF
+_QINV16_HI = _QINV16 >> 8
+
+
+def _stage_tables(params: FalconParams):
+    """(log_n, n) per-position twiddles and (log_n + 1, 11) bound limbs."""
+    n, log_n = params.n, params.log_n
+    table = np.asarray(params.ntt_table, dtype=np.int32)
+    tw = np.zeros((log_n, n), dtype=np.int32)
+    j = np.arange(n)
+    for l in range(log_n):
+        half = n >> (l + 1)
+        tw[l] = table[(1 << l) + j // (2 * half)]
+    bounds = np.stack(
+        [int_to_limbs(c, NUM_LIMBS) for c in params.const_q_powers]
+    ).astype(np.int32)
+    return tw, bounds
+
+
+def _active_limbs(params: FalconParams):
+    """Per-stage active limb counts: after stage l every value is below
+    const_q_powers[l+1] and the stage's intermediates below twice that, so
+    only ceil((bits + 2) / 16) limb rows take part; the rows above stay
+    zero from initialization."""
+    return [
+        min(
+            NUM_LIMBS,
+            (params.const_q_powers[l + 1].bit_length() + 2 + LIMB_BITS - 1)
+            // LIMB_BITS,
+        )
+        for l in range(params.log_n)
+    ]
+
+
+def _inv_stage_tables(params: FalconParams):
+    """(log_n, n) per-position inverse twiddles premultiplied by 2^16 mod q
+    (Montgomery domain), row l for INTT level l."""
+    n, log_n = params.n, params.log_n
+    table = np.asarray(params.inv_ntt_table, dtype=np.int64)
+    itw = np.zeros((log_n, n), dtype=np.int32)
+    j = np.arange(n)
+    for l in range(log_n):
+        half = n >> (l + 1)
+        itw[l] = (table[(1 << l) + j // (2 * half)] << 16) % Q
+    return itw
+
+
+def tables_from_params(params: FalconParams, device) -> dict:
+    """The kernels' tables for one parameter set, as int32 tensors on
+    `device`: tw and itw (log_n, n), bounds (log_n + 1, 11), act (log_n,)."""
+    tw, bounds = _stage_tables(params)
+    host = {
+        "tw": tw,
+        "itw": _inv_stage_tables(params),
+        "bounds": bounds,
+        "act": np.asarray(_active_limbs(params), dtype=np.int32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(n: int, device: torch.device) -> dict:
+    return tables_from_params(get_params(n), device)
+
+
+def _check_input(x, params: FalconParams, name: str):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype != torch.int32:
+        raise ValueError(f"{name}: want int32, got {x.dtype}")
+    if x.dim() != 2 or x.shape[1] != params.n:
+        raise ValueError(f"{name}: want (B, {params.n}), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+
+
+def ntt_with_hints_cuda(x, params: FalconParams):
+    """(t_limbs (11, B, n), b (B, n)) of the bound-tracked hint NTT."""
+    if x.device.type == "cpu":
+        return ntt_with_hints_cuda.plain(x, params)
+    _check_input(x, params, "ntt_with_hints_cuda")
+    batch, n = x.shape
+    t = torch.empty((NUM_LIMBS, batch, n), dtype=torch.int32, device=x.device)
+    b = torch.empty((batch, n), dtype=torch.int32, device=x.device)
+    if batch == 0:
+        return t, b
+    lib = _build.library()
+    tab = _tables(n, x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.ntt_hints_launch(
+            x.data_ptr(), tab["tw"].data_ptr(), tab["bounds"].data_ptr(),
+            tab["act"].data_ptr(), t.data_ptr(), b.data_ptr(),
+            batch, params.log_n, _INV_Q_F32,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check_launch(rc, "ntt_hints_launch")
+    ntt_with_hints_cuda.launches += 1
+    return t, b
+
+
+ntt_with_hints_cuda.launches = 0
+ntt_with_hints_cuda.plain = ntt_with_hints
+
+
+def intt_ntt_hints_cuda(w, params: FalconParams):
+    """(v_t (11, B, n), v_b (B, n), v (B, n)) with v = INTT(w)."""
+    if w.device.type == "cpu":
+        return intt_ntt_hints_cuda.plain(w, params)
+    _check_input(w, params, "intt_ntt_hints_cuda")
+    batch, n = w.shape
+    t = torch.empty((NUM_LIMBS, batch, n), dtype=torch.int32, device=w.device)
+    b = torch.empty((batch, n), dtype=torch.int32, device=w.device)
+    v = torch.empty((batch, n), dtype=torch.int32, device=w.device)
+    if batch == 0:
+        return t, b, v
+    lib = _build.library()
+    tab = _tables(n, w.device)
+    n_inv_mont = (pow(n, Q - 2, Q) << 16) % Q
+    with torch.cuda.device(w.device):
+        rc = lib.intt_ntt_hints_launch(
+            w.data_ptr(), tab["tw"].data_ptr(), tab["itw"].data_ptr(),
+            tab["bounds"].data_ptr(), tab["act"].data_ptr(),
+            t.data_ptr(), b.data_ptr(), v.data_ptr(),
+            batch, params.log_n, _INV_Q_F32,
+            _QINV16_LO, _QINV16_HI, n_inv_mont,
+            torch.cuda.current_stream(w.device).cuda_stream,
+        )
+    _build.check_launch(rc, "intt_ntt_hints_launch")
+    intt_ntt_hints_cuda.launches += 1
+    return t, b, v
+
+
+intt_ntt_hints_cuda.launches = 0
+intt_ntt_hints_cuda.plain = intt_with_hints

@@ -1,0 +1,65 @@
+"""Per-circuit witness API: engine + interleaver + packer lookup.
+
+The counterpart of `falcon_r1cs_tpu/witness/api.py`:
+
+    from falcon_r1cs_tpu_torch.witness import circuit_witness
+    cw = circuit_witness(FalconNTTVerificationCircuit, 1024, "cuda")
+    seg = cw.engine(sig, pk_ntt, hm_ntt)     # batched device engine
+    packed = cw.pack(seg)                     # (B, W, 5) u32 limbs as int32
+    flat = cw.interleave(seg)                 # host object-int parity view
+
+Only the verify-with-NTT circuit is ported; the dual-NTT and schoolbook
+circuits raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from falcon_r1cs_tpu.circuits import (
+    FalconDualNTTVerificationCircuit,
+    FalconNTTVerificationCircuit,
+    FalconSchoolBookVerificationCircuit,
+)
+from falcon_r1cs_tpu.params import get_params
+
+from ..utils.config import RuntimeConfig
+
+
+@dataclass(frozen=True)
+class CircuitWitness:
+    """Bundled witness machinery for one circuit family + parameter set.
+
+    engine inputs (all (B, n) integer tensors on the packer's device):
+      verify-ntt:  (sig lifted to [0,q), pk_ntt, hm_ntt)
+    """
+
+    n: int
+    engine: Callable
+    interleave: Callable
+    pack: Callable
+    export_limbs: int
+
+
+def circuit_witness(
+    circuit_cls, n: int, device, config: RuntimeConfig = RuntimeConfig()
+) -> CircuitWitness:
+    params = get_params(n)
+    if circuit_cls is FalconNTTVerificationCircuit:
+        from .engine import witness_engine
+        from .export_device import packer_ntt
+        from .layout import interleave_witness
+
+        return CircuitWitness(
+            n=n,
+            engine=witness_engine(n, config.fused_intt),
+            interleave=lambda seg: interleave_witness(seg, params),
+            pack=packer_ntt(n, device),
+            export_limbs=5,
+        )
+    if circuit_cls in (
+        FalconDualNTTVerificationCircuit, FalconSchoolBookVerificationCircuit
+    ):
+        raise NotImplementedError(f"{circuit_cls.__name__}: not yet ported")
+    raise TypeError(f"no witness machinery for {circuit_cls!r}")

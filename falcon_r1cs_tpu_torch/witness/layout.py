@@ -1,0 +1,67 @@
+"""Witness layout: interleaving the engine's compact segments into the
+canonical flat witness vector (arkworks allocation order), on the host.
+
+The counterpart of `falcon_r1cs_tpu/witness/layout.py`, rebased on the
+port's ops/limbs.py.  Segments may be torch tensors (any device) or numpy
+arrays; the flat order is the contract checked bit-exactly against the
+host trace (`ConstraintSystem.witness_values`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from falcon_r1cs_tpu.params import FalconParams
+
+from ..ops.limbs import limbs_to_ints
+
+
+def bound_width(params: FalconParams) -> int:
+    return 50 if params.n == 512 else 52
+
+
+def num_witness(params: FalconParams) -> int:
+    n = params.n
+    return n + n + 27 * n + 29 * n * 2 + 30 * n + 18 * 2 * n + bound_width(params)
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def interleave_witness(seg: dict, params: FalconParams) -> np.ndarray:
+    """(B, num_witness) object array of Python ints from the engine's
+    segment dict."""
+    n = params.n
+
+    def obj(name):
+        return _host(seg[name]).astype(object)
+
+    sig = obj("sig")
+    B = sig.shape[0]
+
+    def modq_seg(prefix):
+        out = np.empty((B, n, 29), dtype=object)
+        out[:, :, 0] = limbs_to_ints(_host(seg[prefix + "_t"]))
+        out[:, :, 1] = obj(prefix + "_b")
+        out[:, :, 2:] = obj(prefix + "_tail")
+        return out
+
+    # canonical 30-wide pointwise block = [prod, t, c | bits+chain]
+    pointwise = np.concatenate([obj("pointwise"), obj("pointwise_tail")], axis=-1)
+    # canonical 18-wide norm block = [bits|nor|and | select, square];
+    # the engine emits these feature-first (16|2, B, 2n)
+    norm = np.concatenate(
+        [obj("norm_bits").transpose(1, 2, 0), obj("norm_vals").transpose(1, 2, 0)],
+        axis=-1,
+    )
+    parts = [
+        sig, obj("v"), obj("range_v"), modq_seg("sig_ntt"), modq_seg("v_ntt"),
+        pointwise, norm, obj("bound"),
+    ]
+    out = np.concatenate([p.reshape(B, -1) for p in parts], axis=1)
+    assert out.shape == (B, num_witness(params))
+    return out
