@@ -1,12 +1,20 @@
 """Chip smoke of the PyTorch + CUDA port (falcon_r1cs_tpu_torch).
 
-Drives the port's main path once on one CUDA card at full Falcon-1024
-width: 1024 distinct wire-format signatures -> ProverInputPipeline ->
-packed verify-with-NTT witnesses -> CRT satisfiability verdict, with the
-default v chain and with the fused INTT + hint kernel.  It builds the
-kernels from csrc/, checks that the main path launched each of them,
-holds each kernel against its plain torch version on the card (bit-exact:
-all integer arithmetic), and times both with CUDA events.
+Drives the port's paths once on one CUDA card at full Falcon-1024 width:
+
+- the main path: 1024 distinct wire-format signatures ->
+  ProverInputPipeline -> packed verify-with-NTT witnesses -> CRT
+  satisfiability verdict, with the default v chain and with the fused
+  INTT + hint kernel;
+- the dual-NTT path: 512 signatures -> circuit_witness engine + packer ->
+  CRT verdict plus the host check of the field rows;
+- the schoolbook path: 128 signatures -> circuit_witness engine + packer
+  (1,150,004 witnesses of 8 limbs each) -> CRT verdict plus field rows.
+
+It builds the kernels from csrc/, checks that each path launched its
+kernels (counts set to 0 just before the path, read just after), holds
+each kernel against its plain torch version on the card (bit-exact: all
+integer arithmetic), and times both with CUDA events.
 
     python3 chip_smoke.py
 
@@ -28,6 +36,11 @@ import torch
 N_SIGS = 1024          # the main path's batch
 N_TRACE = 2            # signatures held against the host trace
 N_SAT = 64             # signatures through the CRT check
+N_DUAL = 512           # the dual-NTT path's batch (bench.py bench_dual)
+N_DUAL_SAT = 16
+N_SB = 128             # the schoolbook path's batch (bench.py bench_schoolbook)
+N_SB_TRACE = 1
+N_SB_SAT = 4
 TIMING_REPS = 20
 
 
@@ -62,12 +75,202 @@ def max_abs_err(got, want):
 
 
 def unpack(packed):
-    """(B, W, 5) int32 u32 limbs -> (B, W) object array of Python ints."""
+    """(B, W, L) int32 u32 limbs -> (B, W) object array of Python ints.
+    Only the values with a nonzero high limb are assembled limb by limb."""
     packed = packed.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
-    vals = np.zeros(packed.shape[:2], dtype=object)
-    for k in range(packed.shape[2] - 1, -1, -1):
-        vals = (vals << 32) + packed[:, :, k]
+    vals = packed[:, :, 0].astype(object)
+    for b, w in zip(*np.nonzero(packed[:, :, 1:].any(axis=-1))):
+        v = 0
+        for k in range(packed.shape[2] - 1, -1, -1):
+            v = (v << 32) | int(packed[b, w, k])
+        vals[b, w] = v
     return vals
+
+
+def counted_run(counted, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after (the device synchronised): (result, seconds, counts)."""
+    for wrapper in counted.values():
+        wrapper.launches = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    return out, seconds, {k: w.launches for k, w in counted.items()}
+
+
+def check_against_trace(port, circuit, insts, packed, instance):
+    """The packed witnesses and the instance vector of each signature equal
+    the host trace's."""
+    t0 = time.perf_counter()
+    vals = unpack(packed)
+    for b, inst in enumerate(insts):
+        cs = port.ConstraintSystem()
+        circuit.build_circuit(inst).generate_constraints(cs)
+        assert vals[b].tolist() == cs.witness_values, f"signature {b} != host trace"
+        full = cs.full_assignment()
+        assert instance[b].tolist() == full[: instance.shape[1]], f"instance {b}"
+    return time.perf_counter() - t0
+
+
+def check_verdicts(rs, instance, packed, bumps):
+    """CRT on the device plus the host field rows, (B,) bool, for the packed
+    witnesses and for each (signature, witness slot) bump of one limb-0
+    value: all True, then False exactly on the bumped signature.  Returns
+    the seconds of the unbumped check and the per-bump (CRT, field) lists."""
+    base = unpack(packed)
+    inst_obj = instance.cpu().numpy().astype(object)
+
+    def verdict(pk, vals):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        crt = rs.check_device(rs.witness_residues_from_packed(instance, pk)).cpu()
+        field = [
+            rs.check_field_rows_host(np.concatenate([inst_obj[b], vals[b]]))
+            for b in range(pk.shape[0])
+        ]
+        return crt.tolist(), field, time.perf_counter() - t
+
+    crt, field, seconds = verdict(packed, base)
+    assert all(crt) and all(field), (crt, field)
+    outcomes = []
+    for sig, slot in bumps:
+        bad = packed.clone()
+        bad[sig, slot, 0] += 1
+        vals = base.copy()
+        vals[sig, slot] = unpack(bad[sig : sig + 1, slot : slot + 1])[0, 0]
+        crt, field = verdict(bad, vals)[:2]
+        both = [c and f for c, f in zip(crt, field)]
+        assert [b for b, ok in enumerate(both) if not ok] == [sig], (crt, field)
+        outcomes.append((crt, field))
+    return seconds, outcomes
+
+
+def upload(arrays, dev):
+    """Rows of small integers (|x| < 2^15) -> (B, n) int16 on the device."""
+    return torch.from_numpy(np.stack(arrays).astype(np.int16)).to(dev)
+
+
+def dual_path(port, dev, insts, counted):
+    """The dual-NTT path at n = 1024, B = N_DUAL, through circuit_witness:
+    K1 four times per engine call, packed witnesses equal to the host
+    trace, CRT plus field rows all True and False exactly where bumped."""
+    from falcon_r1cs_tpu_torch.falcon import ntt_torch
+    from falcon_r1cs_tpu_torch.witness import circuit_witness
+
+    circuit, n = port.FalconDualNTTVerificationCircuit, 1024
+    batch = insts[:N_DUAL]
+    sig = upload([i.sig_signed for i in batch], dev)
+    pk_ntt = ntt_torch(upload([i.h for i in batch], dev), n)
+    hm_ntt = ntt_torch(upload([i.hm for i in batch], dev), n)
+    cw = circuit_witness(circuit, n, dev)
+    assert cw.export_limbs == 5
+
+    def path():
+        return cw.pack(cw.engine(sig, pk_ntt, hm_ntt))
+
+    runs = [counted_run(counted, path) for _ in range(2)]
+    for _, _, d in runs:
+        assert d == dict.fromkeys(counted, 0) | {"ntt_hints_kernel": 4}, d
+    packed, warm_s, launches = runs[-1]
+    assert packed.shape == (N_DUAL, 190520, 5) and packed.dtype == torch.int32
+    log(f"dual path n={n} B={N_DUAL}: first {runs[0][1]:.3f} s, warm {warm_s:.3f} s; "
+        f"launches per call {launches}")
+
+    instance = torch.cat(
+        [torch.ones((N_DUAL, 1), dtype=torch.int64, device=dev),
+         pk_ntt.long(), hm_ntt.long()], dim=1,
+    )
+    trace_s = check_against_trace(
+        port, circuit, batch[:N_TRACE], packed[:N_TRACE], instance[:N_TRACE]
+    )
+    log(f"dual: packed witnesses and instance of {N_TRACE} signatures == host "
+        f"trace ({trace_s:.1f} s)")
+
+    t0 = time.perf_counter()
+    compiled = port.compile_circuit(circuit, batch[0], cache=False)
+    rs = port.ResidueSystem(compiled, dev)
+    setup_s = time.perf_counter() - t0
+    # sig_pos[3] (integer rows) on signature 5; the first is_zero bit
+    # (integer rows and its field row) on signature 9
+    sat_s, outcomes = check_verdicts(
+        rs, instance[:N_DUAL_SAT], packed[:N_DUAL_SAT], [(5, 3), (9, 3 * n)]
+    )
+    assert not outcomes[1][1][9], "the field row missed the bumped is_zero bit"
+    log(f"dual CRT + field rows ({len(compiled.field_rows)} rows): {N_DUAL_SAT} valid -> "
+        f"all True ({sat_s:.3f} s; compile + ResidueSystem {setup_s:.1f} s); "
+        "bumped sig_pos / is_zero bit -> exactly that signature False")
+
+    dev_ms = cuda_ms(path, reps=5, inner=2)
+    eng_ms = cuda_ms(lambda: cw.engine(sig, pk_ntt, hm_ntt), reps=5, inner=2)
+    log(f"dual device engine {eng_ms:.3f} ms + packer = {dev_ms:.3f} ms per "
+        f"{N_DUAL}-batch = {N_DUAL / dev_ms * 1e3:.1f} witnesses/s device-only")
+
+
+def schoolbook_path(port, dev, insts, counted):
+    """The schoolbook path at n = 1024, B = N_SB, through circuit_witness:
+    K3 once per engine call, `valid` all 1, packed witnesses equal to the
+    host trace, CRT plus field rows all True and False exactly where
+    bumped.  Returns the count of K3 launches of the counted run."""
+    from falcon_r1cs_tpu_torch.witness import circuit_witness
+
+    circuit, n = port.FalconSchoolBookVerificationCircuit, 1024
+    batch = insts[:N_SB]
+    sig = upload([i.sig_lifted for i in batch], dev)
+    pk = upload([i.h for i in batch], dev)
+    hm = upload([i.hm for i in batch], dev)
+    cw = circuit_witness(circuit, n, dev)
+    assert cw.export_limbs == 8
+
+    def path():
+        seg = cw.engine(sig, pk, hm)
+        return seg, cw.pack(seg)
+
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    (seg, packed), seconds, launches = counted_run(counted, path)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    assert launches == dict.fromkeys(counted, 0) | {"schoolbook_prods_kernel": 1}, launches
+    assert packed.shape == (N_SB, 1150004, 8) and packed.dtype == torch.int32
+    assert seg["valid"].tolist() == [1] * N_SB, "schoolbook: an invalid flag"
+    log(f"schoolbook path n={n} B={N_SB}: {seconds:.3f} s (first call); launches "
+        f"{launches}; packed {packed.numel() * 4 / 1e9:.2f} GB; peak device "
+        f"memory {peak_gib:.2f} GiB, of which {held_gib:.2f} GiB held before the path")
+
+    instance = torch.cat(
+        [torch.ones((N_SB, 1), dtype=torch.int64, device=dev), pk.long(), hm.long()],
+        dim=1,
+    )
+    trace_s = check_against_trace(
+        port, circuit, batch[:N_SB_TRACE], packed[:N_SB_TRACE], instance[:N_SB_TRACE]
+    )
+    log(f"schoolbook: packed witnesses and instance of {N_SB_TRACE} signature == "
+        f"host trace, {packed.shape[1]} values ({trace_s:.1f} s)")
+
+    t0 = time.perf_counter()
+    compiled = port.compile_circuit(circuit, batch[0], cache=False)
+    rs = port.ResidueSystem(compiled, dev)
+    setup_s = time.perf_counter() - t0
+    main0 = n + 28 * n  # column 0's block [t, c | n prods | 27 | 5] in the witness
+    neq1 = int(seg["iseq"][2, 0, 0])
+    mult = main0 + n + (30 if neq1 else 32)  # column 0's unequal is_eq multiplier
+    sat_s, outcomes = check_verdicts(
+        rs, instance[:N_SB_SAT], packed[:N_SB_SAT], [(1, main0 + 2), (2, mult)]
+    )
+    crt, field = outcomes[1]
+    assert all(crt) and not field[2], "the multiplier bump must fail its field row only"
+    log(f"schoolbook CRT + field rows ({len(compiled.field_rows)} rows): {N_SB_SAT} "
+        f"valid -> all True ({sat_s:.3f} s; compile + ResidueSystem {setup_s:.1f} s); "
+        "bumped mul wire -> CRT False there; bumped is_eq multiplier -> CRT all "
+        "True, field rows False exactly there")
+    del seg, packed
+
+    dev_ms = cuda_ms(lambda: cw.pack(cw.engine(sig, pk, hm)), reps=5, inner=2)
+    eng_ms = cuda_ms(lambda: cw.engine(sig, pk, hm), reps=5, inner=2)
+    log(f"schoolbook device engine {eng_ms:.3f} ms + packer = {dev_ms:.3f} ms per "
+        f"{N_SB}-batch = {N_SB / dev_ms * 1e3:.1f} witnesses/s device-only")
+    return launches["schoolbook_prods_kernel"]
 
 
 def main():
@@ -83,6 +286,7 @@ def main():
     )
     from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt
     from falcon_r1cs_tpu_torch.ops.ntt_limb import intt_then_hints
+    from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods_cuda
     from falcon_r1cs_tpu_torch.witness import packer_ntt, witness_engine
 
     # -- 1. environment ---------------------------------------------------
@@ -171,40 +375,30 @@ def main():
     hm = np.stack([i.hm for i in insts])
     assert np.array_equal(out.pk_ntt.cpu().numpy(), ntt(h))
     assert np.array_equal(out.hm_ntt.cpu().numpy(), ntt(hm))
-    t0 = time.perf_counter()
-    vals = unpack(packed[:N_TRACE])
-    for b in range(N_TRACE):
-        cs = port.ConstraintSystem()
-        circuit.build_circuit(insts[b]).generate_constraints(cs)
-        assert list(vals[b]) == cs.witness_values, f"signature {b} != host trace"
-    log(f"packed witnesses of {N_TRACE} signatures == host trace "
-        f"({time.perf_counter() - t0:.1f} s)")
+    instance = torch.cat(
+        [torch.ones((N_SIGS, 1), dtype=torch.int64, device=dev),
+         out.pk_ntt.long(), out.hm_ntt.long()], dim=1,
+    )
+    trace_s = check_against_trace(
+        port, circuit, insts[:N_TRACE], packed[:N_TRACE], instance[:N_TRACE]
+    )
+    log(f"packed witnesses and instance of {N_TRACE} signatures == host trace "
+        f"({trace_s:.1f} s)")
 
     t0 = time.perf_counter()
     compiled = port.compile_circuit(circuit, insts[0], cache=False)
     rs = port.ResidueSystem(compiled, dev)
     log(f"compile_circuit + ResidueSystem: {time.perf_counter() - t0:.1f} s "
         f"(nnz A/B/C {compiled.nnz()})")
-    instance = torch.cat(
-        [
-            torch.ones((N_SAT, 1), dtype=torch.int64, device=dev),
-            out.pk_ntt[:N_SAT].long(),
-            out.hm_ntt[:N_SAT].long(),
-        ],
-        dim=1,
-    )
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    verdict = rs.check_device(rs.witness_residues_from_packed(instance, packed[:N_SAT]))
-    torch.cuda.synchronize()
-    sat_s = time.perf_counter() - t0
-    assert verdict.all().item(), "a valid signature failed the CRT check"
-    bad = packed[:N_SAT].clone()
-    bad[5, 3, 0] += 1  # one sig coefficient of signature 5
-    verdict_bad = rs.check_device(rs.witness_residues_from_packed(instance, bad))
-    assert (~verdict_bad).nonzero().flatten().tolist() == [5], verdict_bad
+    # one sig coefficient of signature 5
+    sat_s, _ = check_verdicts(rs, instance[:N_SAT], packed[:N_SAT], [(5, 3)])
     log(f"CRT check: {N_SAT} valid -> all True ({sat_s:.3f} s); "
         "one bumped witness -> exactly that signature False")
+
+    # -- 4b. the dual-NTT and schoolbook paths: counts reset per path ------
+    path_counted = dict(counted, schoolbook_prods_kernel=schoolbook_prods_cuda)
+    dual_path(port, dev, insts, path_counted)
+    sb_launches = schoolbook_path(port, dev, insts, path_counted)
 
     # -- 5. each kernel against its plain version, on the card -------------
     records = []
@@ -239,6 +433,30 @@ def main():
                     replaces=replaces, launches=launches[name],
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 ))
+    for p in (port.FALCON_512, port.FALCON_1024):
+        rng = np.random.default_rng(p.n + 1)
+        sig = torch.from_numpy(
+            rng.integers(0, port.Q, size=(N_SB, p.n)).astype(np.int32)).to(dev)
+        pk = torch.from_numpy(
+            rng.integers(0, port.Q, size=(N_SB, p.n)).astype(np.int32)).to(dev)
+        sig[0, :3] = port.Q - 1
+        pk[0, :2] = torch.tensor([port.Q - 1, 0], dtype=torch.int32)
+        wrapper = schoolbook_prods_cuda
+        err = max_abs_err(wrapper(sig, pk, p.n), wrapper.plain(sig, pk, p.n))
+        assert err == 0, f"schoolbook_prods_kernel n={p.n} differs from its plain version"
+        ms = cuda_ms(lambda: wrapper(sig, pk, p.n))
+        plain_ms = cuda_ms(lambda: wrapper.plain(sig, pk, p.n))
+        gbs = N_SB * p.n * p.n * 4 / (ms * 1e-3) / 1e9
+        log(f"schoolbook_prods_kernel n={p.n} B={N_SB}: kernel {ms:.4f} ms "
+            f"({gbs:.0f} GB/s of prods written), plain {plain_ms:.4f} ms, bit-equal")
+        if p is params:
+            records.append(dict(
+                name="schoolbook_prods_kernel", route="cuda",
+                source="falcon_r1cs_tpu_torch/csrc/schoolbook.cu",
+                replaces="falcon_r1cs_tpu/ops/pallas_schoolbook.py:45",
+                launches=sb_launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            ))
+        del sig, pk
     y = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     err = max_abs_err([_build.add_one(y)], [_build.add_one.plain(y)])
     assert err == 0

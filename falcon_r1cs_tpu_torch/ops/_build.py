@@ -1,7 +1,8 @@
 """Build, load and self-test the port's CUDA kernels.
 
 The counterpart of `falcon_r1cs_tpu/ops/pallas_support.py`.  The sources
-under `csrc/` are compiled with `nvcc` for sm_90a into one shared library
+under `csrc/` are compiled with `nvcc` for sm_90a, one compiler process
+per source, all started together, and linked into one shared library
 with a plain C interface, at first use, into `build/kernels/` beside the
 package (a directory git ignores), under a name keyed by a hash of the
 sources and the flags.  The library is loaded with ctypes.  Right after
@@ -30,9 +31,10 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +45,7 @@ _ARGTYPES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P,
     ],
     "add_one_launch": [_P, _P, _I, _P],
+    "schoolbook_prods_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -56,7 +59,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(_CSRC.glob("*.cu")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -67,29 +70,43 @@ def library_path() -> Path:
 def build() -> tuple[Path, float, str]:
     """Compile the kernels if the keyed library is missing.
 
-    Returns (library path, seconds spent compiling, nvcc's log).  The
-    compile writes to a temporary file and renames it into place, so a
-    concurrent or interrupted build never leaves a partial library."""
+    Returns (library path, seconds spent compiling and linking, nvcc's
+    log).  Each source compiles to an object in its own nvcc process, all
+    at once; the link writes to a temporary file that is renamed into
+    place, so a concurrent or interrupted build never leaves a partial
+    library."""
     so = library_path()
     if so.exists():
         return so, 0.0, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    srcs = [str(s) for s in sorted(_CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    srcs = sorted(_CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (src.stem + ".o")) for src in srcs]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(srcs, objs)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        log = "".join(logs)
+        failed = [
+            src.name for src, proc in zip(srcs, procs) if proc.returncode != 0
+        ]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        lib = str(Path(tmp) / so.name)
+        proc = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", lib, *objs], capture_output=True, text=True
         )
-    os.replace(tmp, so)
-    return so, seconds, proc.stdout + proc.stderr
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(lib, so)
+    return so, time.perf_counter() - t0, log
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -11,8 +11,12 @@ tagged `field_rows` holds exactly over the signed integers with
 Per prime the sparse matvec is a gather of witness residues, a product
 with the matrix residues reduced mod m, and an `index_add_` over the
 constraint rows, all in int64 on the device and batched over signatures.
-The field rows are masked out here; none exist in the verify-with-NTT
-circuit.
+
+The tagged field rows (the is_zero / is_eq multiplier rows: none in the
+verify-with-NTT circuit, 2 in the dual-NTT circuit, 2n in the schoolbook
+circuit) hold only mod p.  `check_device` masks them out; they are
+checked in exact host arithmetic by `check_field_rows_host`, and
+`is_satisfied` gives the full verdict from both.
 """
 
 from __future__ import annotations
@@ -75,6 +79,20 @@ class ResidueSystem:
         mask[compiled.field_rows] = False
         self.int_row_mask = to_dev(mask)
 
+    def witness_residues(self, assignments) -> torch.Tensor:
+        """(B, V) object ints (full assignments, instance first) -> (P, B, V)
+        int32 residues on the device.  Field-sized values (the is_eq
+        multipliers) reduce mod m from their mod-p representative, which
+        is harmless: the field rows are masked out of the CRT check."""
+        assignments = np.asarray(assignments, dtype=object)
+        B, V = assignments.shape
+        signs, limbs = CompiledR1CS.signed_to_limbs(assignments.reshape(-1))
+        out = np.stack([
+            CompiledR1CS.limb_residues(signs, limbs, int(m)).reshape(B, V)
+            for m in self.primes
+        ]).astype(np.int32)
+        return torch.from_numpy(out).to(self.device)
+
     def witness_residues_from_packed(self, instance, packed) -> torch.Tensor:
         """(P, B, V) int32 residues from the device-packed witness
         (B, W, L) int32 u32 limbs and the (B, I) instance values."""
@@ -116,3 +134,43 @@ class ResidueSystem:
             bad = (aw * bw - cw) % m != 0
             fails |= (bad & self.int_row_mask[None, :]).any(dim=1)
         return ~fails
+
+    @functools.cached_property
+    def _field_entries(self) -> dict:
+        """Per matrix, the COO entries (rows, cols, vals) that lie in a field
+        row, picked once with numpy."""
+        field = self.compiled.field_rows
+        out = {}
+        for which in ("a", "b", "c"):
+            rows, cols, vals = getattr(self.compiled, which)
+            sel = np.isin(rows, field)
+            out[which] = (rows[sel].tolist(), cols[sel].tolist(), vals[sel].tolist())
+        return out
+
+    def check_field_rows_host(self, assignment) -> bool:
+        """Exact mod-p evaluation of the tagged field rows for one full
+        assignment (indexable by column: list or object array of ints)."""
+        comp = self.compiled
+        if not len(comp.field_rows):
+            return True
+        p = comp.p
+
+        def row_vals(which):
+            acc = dict.fromkeys(comp.field_rows.tolist(), 0)
+            for r, c, v in zip(*self._field_entries[which]):
+                acc[r] += int(v) * int(assignment[c])
+            return acc
+
+        a, b, c = row_vals("a"), row_vals("b"), row_vals("c")
+        return all((a[r] % p) * (b[r] % p) % p == c[r] % p for r in a)
+
+    def is_satisfied(self, assignments) -> np.ndarray:
+        """The full batched verdict: the device CRT check of the integer
+        rows, then the host check of the field rows for every signature
+        that passed it.  assignments: (B, V) object ints.  Returns (B,)
+        bool."""
+        assignments = np.asarray(assignments, dtype=object)
+        ok = self.check_device(self.witness_residues(assignments)).cpu().numpy()
+        for b in np.flatnonzero(ok):
+            ok[b] = self.check_field_rows_host(assignments[b])
+        return ok

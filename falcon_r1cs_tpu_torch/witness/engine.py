@@ -65,10 +65,23 @@ def _modq_block(b_val):
     return torch.cat([bits, _lt_q_chain(bits, b_val)], dim=-1)
 
 
+def _norm_block(c):
+    """is_less_than_6144 + select + square for coeffs c (..., 2n) in
+    [0, q), feature axis last: bits16 (..., 2n, 16) int8 = 14 bits |
+    nor=b12*b11 | and=(1-b13)(1-nor); sel and sq (..., 2n) int32.  The
+    schoolbook engine's canonical 18-wide block is [bits16 | sel | sq]."""
+    bits = _bits(c, 14)
+    w_nor = bits[..., 12] * bits[..., 11]
+    w_and = (1 - bits[..., 13]) * (1 - w_nor)
+    sel = torch.where(w_and == 1, c, Q - c)
+    sq = sel * sel
+    bits16 = torch.cat([bits, w_nor[..., None], w_and[..., None]], dim=-1)
+    return bits16, sel, sq
+
+
 def _norm_block_t(c):
-    """is_less_than_6144 + select + square for coeffs c (B, 2n) in [0, q),
-    feature axis first: bits16 (16, B, 2n) int8 = 14 bits | nor=b12*b11 |
-    and=(1-b13)(1-nor); sel and sq (B, 2n) int32."""
+    """_norm_block with the feature axis first, for coeffs c (B, 2n):
+    bits16 (16, B, 2n) int8; sel and sq (B, 2n) int32."""
     shifts = torch.arange(14, dtype=torch.int32, device=c.device)[:, None, None]
     bits = ((c[None, :, :] >> shifts) & 1).to(torch.int8)
     w_nor = bits[12] * bits[11]

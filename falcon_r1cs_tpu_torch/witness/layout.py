@@ -32,23 +32,26 @@ def _host(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def modq_seg(seg: dict, prefix: str) -> np.ndarray:
+    """(B, n, 29) object array of one mod_q block [t | b | 27 bits+chain]
+    from the segments `prefix`_t (11, B, n) limbs, `prefix`_b (B, n) and
+    `prefix`_tail (B, n, 27)."""
+    b = _host(seg[prefix + "_b"])
+    out = np.empty(b.shape + (29,), dtype=object)
+    out[:, :, 0] = limbs_to_ints(_host(seg[prefix + "_t"]))
+    out[:, :, 1] = b.astype(object)
+    out[:, :, 2:] = _host(seg[prefix + "_tail"]).astype(object)
+    return out
+
+
 def interleave_witness(seg: dict, params: FalconParams) -> np.ndarray:
     """(B, num_witness) object array of Python ints from the engine's
     segment dict."""
-    n = params.n
-
     def obj(name):
         return _host(seg[name]).astype(object)
 
     sig = obj("sig")
     B = sig.shape[0]
-
-    def modq_seg(prefix):
-        out = np.empty((B, n, 29), dtype=object)
-        out[:, :, 0] = limbs_to_ints(_host(seg[prefix + "_t"]))
-        out[:, :, 1] = obj(prefix + "_b")
-        out[:, :, 2:] = obj(prefix + "_tail")
-        return out
 
     # canonical 30-wide pointwise block = [prod, t, c | bits+chain]
     pointwise = np.concatenate([obj("pointwise"), obj("pointwise_tail")], axis=-1)
@@ -59,7 +62,7 @@ def interleave_witness(seg: dict, params: FalconParams) -> np.ndarray:
         axis=-1,
     )
     parts = [
-        sig, obj("v"), obj("range_v"), modq_seg("sig_ntt"), modq_seg("v_ntt"),
+        sig, obj("v"), obj("range_v"), modq_seg(seg, "sig_ntt"), modq_seg(seg, "v_ntt"),
         pointwise, norm, obj("bound"),
     ]
     out = np.concatenate([p.reshape(B, -1) for p in parts], axis=1)

@@ -107,14 +107,27 @@ def test_packer_matches_jax(params):
 
 
 def test_circuit_witness_api():
+    """All three circuits give working machinery: engine, packer and
+    interleaver agree on one signature, with 5/5/8 export limbs."""
     params = FALCON_512
-    _, arrays = _inputs(params, 1, seed=14)
-    cw = circuit_witness(FalconNTTVerificationCircuit, 512, "cpu")
-    seg = cw.engine(*_torch(arrays))
-    assert (_unpack(cw.pack(seg)) == cw.interleave(seg)).all()
-    assert cw.export_limbs == 5
-    for cls in (FalconDualNTTVerificationCircuit, FalconSchoolBookVerificationCircuit):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            circuit_witness(cls, 512, "cpu")
+    inst, (sig, pk_ntt, hm_ntt) = _inputs(params, 1, seed=14)
+    inputs = {
+        FalconNTTVerificationCircuit: (sig, pk_ntt, hm_ntt),
+        FalconDualNTTVerificationCircuit: (
+            inst[0].sig_signed[None].astype(np.int32), pk_ntt, hm_ntt,
+        ),
+        FalconSchoolBookVerificationCircuit: (
+            sig, inst[0].h[None].astype(np.int32), inst[0].hm[None].astype(np.int32),
+        ),
+    }
+    limbs = {}
+    for cls, arrays in inputs.items():
+        cw = circuit_witness(cls, 512, "cpu")
+        seg = cw.engine(*_torch(arrays))
+        packed = cw.pack(seg)
+        assert packed.shape[2] == cw.export_limbs
+        assert (_unpack(packed) == cw.interleave(seg)).all(), cls.__name__
+        limbs[cls] = cw.export_limbs
+    assert list(limbs.values()) == [5, 5, 8]
     with pytest.raises(TypeError):
         circuit_witness(int, 512, "cpu")

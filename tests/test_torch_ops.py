@@ -206,7 +206,10 @@ def test_kernel_library_key_follows_sources():
     path = _build.library_path()
     assert path.parent == REPO / "build" / "kernels"
     assert path == _build.library_path()
-    assert [p.name for p in _build._CSRC.glob("*.cu")] == ["ntt_hints.cu"]
+    assert sorted(p.name for p in _build._CSRC.glob("*.cu")) == [
+        "ntt_hints.cu", "schoolbook.cu",
+    ]
+    assert "schoolbook_prods_launch" in _build._ARGTYPES
 
 
 def test_port_imports_no_jax():
