@@ -9,12 +9,18 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
 - the dual-NTT path: 512 signatures -> circuit_witness engine + packer ->
   CRT verdict plus the host check of the field rows;
 - the schoolbook path: 128 signatures -> circuit_witness engine + packer
-  (1,150,004 witnesses of 8 limbs each) -> CRT verdict plus field rows.
+  (1,150,004 witnesses of 8 limbs each) -> CRT verdict plus field rows;
+- the Groth16 path: one signature of the main path's batch -> its packed
+  witness as prover scalars -> `prove(g1_backend="gpu")`, whose four G1
+  MSMs (n_pad = 2^18) run on the Fq kernels, against the native C prover
+  with the same r and s; each MSM against the native C MSM.
 
 It builds the kernels from csrc/, checks that each path launched its
 kernels (counts set to 0 just before the path, read just after), holds
 each kernel against its plain torch version on the card (bit-exact: all
-integer arithmetic), and times both with CUDA events.
+integer arithmetic), and times both with CUDA events.  Each kernel's
+bound is the larger of its bytes over the card's memory rate and its
+int32 multiply-adds over the card's int32 rate (H100_* below).
 
     python3 chip_smoke.py
 
@@ -41,11 +47,39 @@ N_DUAL_SAT = 16
 N_SB = 128             # the schoolbook path's batch (bench.py bench_schoolbook)
 N_SB_TRACE = 1
 N_SB_SAT = 4
+M_FQ = 1 << 16         # points per Fq kernel launch in the kernel-vs-plain phase
 TIMING_REPS = 20
+
+# NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3; 67 TFLOP/s fp32 outside the
+# tensor cores = 132 SMs x 128 fp32 lanes x 2 x 1.98 GHz.  An SM has 64 int32
+# lanes, so its int32 multiply-add peak is 132 x 64 x 1.98e9 per second.
+H100_BYTES_PER_S = 3.35e12
+H100_INT32_MAD_PER_S = 132 * 64 * 1.98e9
+# int32 multiply-adds of one lazy Montgomery product (csrc/fq_mont.cu): the
+# 35 x 35 product, the 34 low columns of T mu, the 34 x 35 product m q
+MONT_MUL_MADS = 35 * 35 + 34 * 35 // 2 + 34 * 35
+# of one mod-q equality test: alpha q (35) and 30 CRT residues of 37 limbs
+EQ_MADS = 35 + 37 * 30
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def record(name, source, replaces, launches, err, ms, plain_ms, nbytes, mads,
+           library_ms=None):
+    """One entry of the kernels line; the bound is the larger of the bytes
+    the function must move and its int32 multiply-adds, each over the
+    card's peak rate."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = mads / H100_INT32_MAD_PER_S * 1e3
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=library_ms,
+    )
 
 
 def cuda_ms(fn, reps=TIMING_REPS, inner=5, warmup=3):
@@ -273,6 +307,237 @@ def schoolbook_path(port, dev, insts, counted):
     return launches["schoolbook_prods_kernel"]
 
 
+def k5_per_group(n_pad: int, window: int) -> int:
+    """K5 launches of one window group of the MSM engine: one per merge
+    tree level above level 1, then the weighted bucket sum's tree sums and
+    suffix scans (snark/gpu_msm.py)."""
+    from falcon_r1cs_tpu_torch.snark import gpu_msm
+
+    def scan(nbk):  # _hs_suffix_weighted: shift steps, then the tree
+        p2 = 1 << max(1, (nbk - 2).bit_length())
+        return 2 * (p2.bit_length() - 1)
+
+    levels = n_pad.bit_length() - 2
+    nb = (1 << (window - 1)) + 1
+    if not gpu_msm._wsum_decomp(nb):
+        return levels + scan(nb)
+    cl = gpu_msm.wsum_weights(nb)[0]
+    ch = (nb - 1) // cl
+    return levels + (cl.bit_length() - 1) + (ch.bit_length() - 1) + scan(ch) + scan(cl)
+
+
+def device_kernel_ms(fn):
+    """(wall ms, device ms of all CUDA kernels, top kernels) of one fn() run
+    under torch.profiler; device time sums the CUDA rows only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if v is None else v
+
+    rows.sort(key=us, reverse=True)
+    busy = sum(us(e) for e in rows) / 1e3
+    return wall, busy, [(e.key[:60], us(e) / 1e3, e.count) for e in rows[:8]]
+
+
+def groth16_path(port, dev, compiled, packed, instance, counted):
+    """One Falcon-1024 verify-with-NTT proof with the G1 MSMs on the card:
+    setup on the host, the assignment from the main path's packed export,
+    prove(g1_backend="gpu") identical to prove(g1_backend="native") with
+    the same r and s, verify True and False on a tampered proof or input;
+    then each of the four G1 MSMs against the native C MSM, cold (with the
+    K4 conversion) and warm.  Returns the prove run's launch counts."""
+    from falcon_r1cs_tpu_torch.ops import fq
+    from falcon_r1cs_tpu_torch.snark import gpu_msm, groth16, native_backend
+    from falcon_r1cs_tpu_torch.snark.bls12_381 import R
+    from falcon_r1cs_tpu_torch.snark.points import ints_to_limbs, packed_to_limb_rows
+
+    assert native_backend.available(), "the native C Groth16 backend did not build"
+    counted = dict(
+        counted, mont_mul_kernel=fq.mont_mul_cuda, point_add_kernel=fq.point_add_cuda,
+        point_add_aff_kernel=fq.point_add_aff_cuda,
+    )
+    rng = np.random.default_rng(20261018)
+    t0 = time.perf_counter()
+    pk = groth16.setup(
+        compiled, toxic=groth16.SetupToxic(*(int.from_bytes(rng.bytes(32), "little") % R
+                                             for _ in range(5)))
+    )
+    log(f"groth16 setup (host, native C fixed-base): {time.perf_counter() - t0:.1f} s")
+    public = instance[0].tolist()
+    z = np.concatenate([ints_to_limbs(public, 4), packed_to_limb_rows(packed[0].cpu().numpy())])
+    assert len(z) == compiled.num_variables
+    r, s = (int.from_bytes(rng.bytes(32), "little") % R for _ in range(2))
+
+    proof, gpu_s, launches = counted_run(
+        counted, lambda: groth16.prove(pk, compiled, z, r=r, s=s, g1_backend="gpu"))
+    t0 = time.perf_counter()
+    groth16.prove(pk, compiled, z, r=r, s=s, g1_backend="gpu")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = groth16.prove(pk, compiled, z, r=r, s=s, g1_backend="native")
+    native_s = time.perf_counter() - t0
+    assert (proof.a, proof.b, proof.c) == (want.a, want.b, want.c), "gpu proof != native"
+    t0 = time.perf_counter()
+    assert groth16.verify(pk.vk, public, proof), "the proof does not verify"
+    verify_s = time.perf_counter() - t0
+    bad = list(public)
+    bad[1] = (bad[1] + 1) % port.Q
+    assert not groth16.verify(pk.vk, bad, proof), "a wrong public input verified"
+    assert not groth16.verify(pk.vk, public, groth16.Proof(a=proof.c, b=proof.b, c=proof.a))
+    h, _ = native_backend.witness_map(compiled, z)
+    ni = compiled.num_instance
+    msms = [("a", pk.a_query, z), ("b_g1", pk.b_g1_query, z),
+            ("l", pk.l_query, z[ni:]), ("h", pk.h_query, h)]
+    nw = (255 + gpu_msm.WINDOW - 1) // gpu_msm.WINDOW
+
+    def per_msm(pts):
+        """Launches of one MSM over a cached point set (+1 K4 when new)."""
+        n_pad = max(8, 1 << (len(pts) - 1).bit_length())  # 2^18 at Falcon-1024
+        groups = nw // gpu_msm._group_windows(n_pad, nw)
+        return dict.fromkeys(counted, 0) | {
+            "point_add_aff_kernel": groups,
+            "point_add_kernel": groups * k5_per_group(n_pad, gpu_msm.WINDOW)}
+
+    expect = {k: sum(per_msm(p)[k] for _, p, _ in msms) for k in counted}
+    expect["mont_mul_kernel"] = len(msms)  # each new point set converts once
+    assert launches == expect, (launches, expect)
+    log(f"groth16 prove, g1_backend=gpu: {gpu_s:.3f} s (first, incl. the CRS "
+        f"conversion), {warm_s:.3f} s (second); native: {native_s:.3f} s; "
+        "identical proofs; verify True "
+        f"({verify_s:.3f} s), wrong input / tampered proof False; launches {launches}")
+
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    for name, pts, sc in msms:
+        t0 = time.perf_counter()
+        want = native_backend.g1_msm(pts, sc)
+        nat_s = time.perf_counter() - t0
+        del pts._gpu_mont_cache  # time the first use of a point set again
+        got, cold_s, d_cold = counted_run(counted, lambda: gpu_msm.g1_msm_gpu(pts, sc))
+        got2, warm_s, d_warm = counted_run(counted, lambda: gpu_msm.g1_msm_gpu(pts, sc))
+        assert got == want and got2 == want, f"MSM {name} != native"
+        assert d_warm == per_msm(pts), d_warm
+        assert d_cold == d_warm | {"mont_mul_kernel": 1}, d_cold
+        log(f"G1 MSM {name} n={len(pts)}: gpu cold {cold_s:.3f} s, "
+            f"warm {warm_s:.3f} s; native C {nat_s:.3f} s; equal")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"G1 MSM peak device memory {peak_gib:.2f} GiB, of which {held_gib:.2f} GiB "
+        "held before")
+
+    # where one warm MSM's time goes: host recode, device window sums, host fold
+    pts, sc = pk.h_query, h
+    n_pad = max(8, 1 << (len(pts) - 1).bit_length())
+    t0 = time.perf_counter()
+    digits = gpu_msm._pad_digits(gpu_msm._window_digits_signed(sc, gpu_msm.WINDOW), n_pad)
+    recode_s = time.perf_counter() - t0
+    Xm, Ym = gpu_msm._points_mont(pts, n_pad, dev)
+    G = gpu_msm._group_windows(n_pad, nw)
+
+    def sums():
+        return gpu_msm._window_sums(torch.from_numpy(digits).to(dev), Xm, Ym,
+                                    gpu_msm.WINDOW, G)
+
+    ws = sums()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu_msm._fold_windows_host(ws, nw, 1, gpu_msm.WINDOW)
+    fold_s = time.perf_counter() - t0
+    sums_ms = cuda_ms(sums, reps=3, inner=1, warmup=1)
+    wall, busy, top = device_kernel_ms(sums)
+    # the idle share against the unprofiled CUDA-event time: the profiler
+    # slows the host's launches, so its own wall time overstates idling
+    log(f"MSM h: host recode {recode_s * 1e3:.1f} ms, device window sums "
+        f"{sums_ms:.1f} ms (CUDA events), host fold {fold_s * 1e3:.1f} ms; "
+        f"kernels busy {busy:.1f} ms (idle share {1 - busy / sums_ms:.3f}; "
+        f"{wall:.1f} ms wall under the profiler)")
+    for key, ms, count in top:
+        log(f"  {ms:9.3f} ms  x{count:<5d} {key}")
+    return launches
+
+
+def fq_kernels_vs_plain(dev, launches):
+    """K4 (depth 1 and 4), K5 and K6 against their plain versions at
+    m = M_FQ points with the doubling, P + (-P) and infinity rows of the
+    JAX package's tests, bit-equal; times, bounds and records."""
+    from falcon_r1cs_tpu_torch.ops import fq, fq_mont
+    from falcon_r1cs_tpu_torch.snark import gpu_msm, native_backend
+
+    m = M_FQ
+    rng = np.random.default_rng(20261019)
+    arr = native_backend.g1_fixed_base_batch([int(x) for x in rng.integers(1, 2**62, m)])
+    xs, ys = gpu_msm._points_std_limbs(arr, m)
+    r2 = fq_mont.consts(dev)["r2"][:, None].expand(fq_mont.NL, m).contiguous()
+    X = fq.mont_mul_cuda(torch.from_numpy(xs.T.copy()).to(dev), r2)
+    Y = fq.mont_mul_cuda(torch.from_numpy(ys.T.copy()).to(dev), r2)
+    perm = torch.from_numpy(rng.permutation(m)).to(dev)
+    X2, Y2 = X[:, perm].clone(), Y[:, perm].clone()
+    # rows 0:64 doubling, 64:96 P + (-P), 96:128 inf1, 128:160 inf2
+    X2[:, :96] = X[:, :96]
+    Y2[:, :64] = Y[:, :64]
+    Y2[:, 64:96] = fq_mont.sub_mod(torch.zeros_like(Y[:, 64:96]), Y[:, 64:96])
+    inf1 = torch.zeros(m, dtype=torch.bool, device=dev)
+    inf1[96:128] = True
+    inf2 = torch.zeros(m, dtype=torch.bool, device=dev)
+    inf2[128:160] = True
+    one = fq_mont.consts(dev)["one"][:, None].expand(fq_mont.NL, m).contiguous()
+    limb_bytes = fq_mont.NL * 4 * m
+
+    def compare(name, wrapper, args, plain_reps=3):
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        want = wrapper.plain(*args)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max_abs_err(got, want)
+        assert err == 0, f"{name} differs from its plain version"
+        ms = cuda_ms(lambda: wrapper(*args))
+        plain_ms = cuda_ms(lambda: wrapper.plain(*args), reps=plain_reps, inner=1, warmup=1)
+        return err, ms, plain_ms
+
+    records = []
+    for depth in (4, 1):
+        err, ms, plain_ms = compare("mont_mul_kernel", fq.mont_mul_cuda, (X, Y2, depth))
+        log(f"mont_mul_kernel depth={depth} m={m}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bit-equal")
+    records.append(record(
+        "mont_mul_kernel", "falcon_r1cs_tpu_torch/csrc/fq_mont.cu",
+        "falcon_r1cs_tpu/ops/pallas_fq.py:280", launches["mont_mul_kernel"], err, ms,
+        plain_ms, 3 * limb_bytes, MONT_MUL_MADS * m,
+    ))
+    # by path: 64 doubling rows, 64 infinity rows, the rest chord
+    p1, p2 = (X, Y, one, inf1), (X2, Y2, one, inf2)
+    err, ms, plain_ms = compare("point_add_kernel", fq.point_add_cuda, (p1, p2))
+    mads = ((m - 128) * 16 + 64 * 15) * MONT_MUL_MADS + (m - 64) * 2 * EQ_MADS
+    log(f"point_add_kernel m={m}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bit-equal")
+    records.append(record(
+        "point_add_kernel", "falcon_r1cs_tpu_torch/csrc/fq_mont.cu",
+        "falcon_r1cs_tpu/ops/pallas_fq.py:325", launches["point_add_kernel"], err, ms,
+        plain_ms, 9 * limb_bytes + 3 * m, mads,
+    ))
+    err, ms, plain_ms = compare("point_add_aff_kernel", fq.point_add_aff_cuda,
+                                ((X, Y, inf1), (X2, Y2, inf2)))
+    mads = (m - 64) * (6 * MONT_MUL_MADS + 2 * EQ_MADS)
+    log(f"point_add_aff_kernel m={m}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        "bit-equal")
+    records.append(record(
+        "point_add_aff_kernel", "falcon_r1cs_tpu_torch/csrc/fq_mont.cu",
+        "falcon_r1cs_tpu/ops/pallas_fq.py:398", launches["point_add_aff_kernel"], err,
+        ms, plain_ms, 7 * limb_bytes + 3 * m, mads,
+    ))
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -308,7 +573,8 @@ def main():
     log(f"build: {so.name} nvcc {build_s:.3f} s"
         + ("" if build_s else " (library already built for these sources)"))
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(k in line for k in ("registers", "spill", "Compiling entry",
+                                   "Function properties")):
             log("  ptxas:", line.strip())
 
     # -- wire-format inputs: N_SIGS distinct Falcon-1024 signatures --------
@@ -399,6 +665,7 @@ def main():
     path_counted = dict(counted, schoolbook_prods_kernel=schoolbook_prods_cuda)
     dual_path(port, dev, insts, path_counted)
     sb_launches = schoolbook_path(port, dev, insts, path_counted)
+    g16_launches = groth16_path(port, dev, compiled, packed, instance, path_counted)
 
     # -- 5. each kernel against its plain version, on the card -------------
     records = []
@@ -427,11 +694,20 @@ def main():
                 log(f"v chain n={p.n} B={N_SIGS}: fused_intt on {ms:.4f} ms, "
                     f"off (torch INTT + hint kernel) {unfused_ms:.4f} ms")
             if p is params:
-                records.append(dict(
-                    name=name, route="cuda",
-                    source="falcon_r1cs_tpu_torch/csrc/ntt_hints.cu",
-                    replaces=replaces, launches=launches[name],
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                # x read, t (11 limbs) and b written, the stage tables; the
+                # limb sweep's multiply-adds (one per active limb per
+                # butterfly) and the divmod's (one per limb per value)
+                coeffs = N_SIGS * p.n
+                nbytes = 4 * (13 * coeffs + p.log_n * p.n + (p.log_n + 1) * 11)
+                mads = coeffs * (sum(cuda_ntt._active_limbs(p)) // 2 + 11)
+                if wrapper is cuda_ntt.intt_ntt_hints_cuda:
+                    # v written, the inverse tables; the INTT's Montgomery
+                    # steps (4 per butterfly) and the n^-1 scaling (3 a value)
+                    nbytes += 4 * (coeffs + p.log_n * p.n)
+                    mads += N_SIGS * (p.log_n * p.n // 2 * 4 + 3 * p.n)
+                records.append(record(
+                    name, "falcon_r1cs_tpu_torch/csrc/ntt_hints.cu", replaces,
+                    launches[name], err, ms, plain_ms, nbytes, mads,
                 ))
     for p in (port.FALCON_512, port.FALCON_1024):
         rng = np.random.default_rng(p.n + 1)
@@ -450,24 +726,24 @@ def main():
         log(f"schoolbook_prods_kernel n={p.n} B={N_SB}: kernel {ms:.4f} ms "
             f"({gbs:.0f} GB/s of prods written), plain {plain_ms:.4f} ms, bit-equal")
         if p is params:
-            records.append(dict(
-                name="schoolbook_prods_kernel", route="cuda",
-                source="falcon_r1cs_tpu_torch/csrc/schoolbook.cu",
-                replaces="falcon_r1cs_tpu/ops/pallas_schoolbook.py:45",
-                launches=sb_launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            # sig, pk read, prods, H, L written; one multiply a product
+            records.append(record(
+                "schoolbook_prods_kernel", "falcon_r1cs_tpu_torch/csrc/schoolbook.cu",
+                "falcon_r1cs_tpu/ops/pallas_schoolbook.py:45", sb_launches, err,
+                ms, plain_ms, 4 * N_SB * p.n * (p.n + 4), N_SB * p.n * p.n,
             ))
         del sig, pk
     y = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     err = max_abs_err([_build.add_one(y)], [_build.add_one.plain(y)])
     assert err == 0
-    records.append(dict(
-        name="add_one_kernel", route="cuda",
-        source="falcon_r1cs_tpu_torch/csrc/ntt_hints.cu",
-        replaces="falcon_r1cs_tpu/ops/pallas_support.py:17",
-        launches=launches["add_one_kernel"], max_abs_err=err,
-        ms=cuda_ms(lambda: _build.add_one(y)),
-        plain_ms=cuda_ms(lambda: _build.add_one.plain(y)),
+    records.append(record(
+        "add_one_kernel", "falcon_r1cs_tpu_torch/csrc/ntt_hints.cu",
+        "falcon_r1cs_tpu/ops/pallas_support.py:17", launches["add_one_kernel"],
+        err, cuda_ms(lambda: _build.add_one(y)),
+        cuda_ms(lambda: _build.add_one.plain(y)), 2 * y.numel() * 4, 0,
+        library_ms=cuda_ms(lambda: torch.add(y, 1)),
     ))
+    records += fq_kernels_vs_plain(dev, g16_launches)
 
     # device part of the main path alone: engine + packer on uploaded inputs
     engine = witness_engine(params.n)
@@ -480,7 +756,8 @@ def main():
     log(f"device engine {eng_ms:.3f} ms + packer = {dev_ms:.3f} ms per "
         f"{N_SIGS}-batch = {N_SIGS / dev_ms * 1e3:.1f} witnesses/s device-only")
 
-    assert "jax" not in sys.modules, "the port loaded JAX"
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "falcon_r1cs_tpu")]
+    assert not loaded, f"the port loaded JAX or the JAX package: {loaded}"
     log(json.dumps({"kernels": records}))
     log(card)
     log(json.dumps({"ok": True, "device": {

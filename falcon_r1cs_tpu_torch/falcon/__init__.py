@@ -1,30 +1,48 @@
 """Clear-side Falcon layer of the port.
 
-The host half (codecs, hash-to-point, instance generation, the numpy NTT)
-contains no JAX and is the JAX package's own, re-exported here; the device
-half of the NTT is ported to torch in `ntt.py`.
+The host half (codecs, hash-to-point, polynomials, instance generation and
+the clear verify, the numpy NTT) is the port's own copy of the JAX
+package's; the device half of the NTT is ported to torch in `ntt.py`.
 """
 
-from falcon_r1cs_tpu.falcon import (
+from .codec import (
+    CodecError,
     compress_signature,
     decode_public_key,
     decompress_signature,
     encode_public_key,
-    hash_to_point_batch,
-    make_instance,
 )
-
-from .ntt import intt, intt_torch, ntt, ntt_torch
+from .hash_to_point import NONCE_LEN, hash_to_point, hash_to_point_batch
+from .instances import (
+    VerificationInstance,
+    instance_from_signature,
+    make_instance,
+    make_instance_batch,
+    verify,
+)
+from .ntt import intt, intt_torch, negacyclic_mul, ntt, ntt_torch
+from .poly import DualPolynomial, NTTPolynomial, Polynomial
 
 __all__ = [
+    "CodecError",
+    "DualPolynomial",
+    "NONCE_LEN",
+    "NTTPolynomial",
+    "Polynomial",
+    "VerificationInstance",
     "compress_signature",
     "decode_public_key",
     "decompress_signature",
     "encode_public_key",
+    "hash_to_point",
     "hash_to_point_batch",
+    "instance_from_signature",
     "intt",
     "intt_torch",
     "make_instance",
+    "make_instance_batch",
+    "negacyclic_mul",
     "ntt",
     "ntt_torch",
+    "verify",
 ]

@@ -1,25 +1,79 @@
-"""Clear-side NTT over Z_q on int32 tensors: the device half of
-`falcon_r1cs_tpu/falcon/ntt.py` (`ntt_jax`, `intt_jax`).
+"""Clear-side NTT over Z_q: numpy on the host, torch on int32 tensors.
 
-Plain torch, as the JAX package leaves these to XLA.  Every butterfly
-reduces with the exact division-free ops of ops/modq.py, so each output is
-the canonical residue in [0, q) and equals the JAX and numpy NTTs bit for
-bit, whatever the order of the passes.  The numpy `ntt`/`intt` are the JAX
-package's own and are re-exported here.
+The numpy `ntt`, `intt` and `negacyclic_mul` are copies of the JAX
+package's `falcon_r1cs_tpu/falcon/ntt.py`; `ntt_torch` and `intt_torch`
+are the device half (`ntt_jax`, `intt_jax` there).
+
+The torch passes are plain torch, as the JAX package leaves these to XLA.
+Every butterfly reduces with the exact division-free ops of ops/modq.py, so
+each output is the canonical residue in [0, q) and equals the JAX and numpy
+NTTs bit for bit, whatever the order of the passes.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
-from falcon_r1cs_tpu.falcon.ntt import intt, ntt
-from falcon_r1cs_tpu.params import Q, get_params
-
 from ..ops.modq import add_mod_q, mul_mod_q, sub_mod_q
+from ..params import Q, get_params
 
-__all__ = ["intt", "intt_torch", "ntt", "ntt_torch"]
+__all__ = ["intt", "intt_torch", "negacyclic_mul", "ntt", "ntt_torch"]
+
+
+def ntt(coeffs: np.ndarray) -> np.ndarray:
+    """Forward negacyclic NTT of int array(s) with trailing axis n. mod q.
+
+    Accepts shape (..., n).  Stage-wise Cooley-Tukey: at stage l the array is
+    viewed as (..., 2^l, 2, half) and each pair of halves is combined with the
+    per-group twiddle table[2^l + i] -- the same access pattern as
+    `falcon-r1cs/src/gadgets/poly.rs:122`.
+    """
+    x = np.asarray(coeffs, dtype=np.int64) % Q
+    n = x.shape[-1]
+    p = get_params(n)
+    table = np.asarray(p.ntt_table, dtype=np.int64)
+    batch = x.shape[:-1]
+    for l in range(p.log_n):
+        m = 1 << l
+        half = n >> (l + 1)
+        x = x.reshape(*batch, m, 2, half)
+        s = table[m : 2 * m].reshape(*(1,) * len(batch), m, 1)
+        u = x[..., 0, :]
+        v = x[..., 1, :] * s % Q
+        x = np.stack([(u + v) % Q, (u - v) % Q], axis=-2)
+    return x.reshape(*batch, n).astype(np.int64)
+
+
+def intt(coeffs: np.ndarray) -> np.ndarray:
+    """Inverse negacyclic NTT (Gentleman-Sande), mod q. Shape (..., n).
+
+    Clear-side only: the reference circuits contain no inverse NTT.  Needed
+    by the instance generator and verifier.
+    """
+    x = np.asarray(coeffs, dtype=np.int64) % Q
+    n = x.shape[-1]
+    p = get_params(n)
+    table = np.asarray(p.inv_ntt_table, dtype=np.int64)
+    batch = x.shape[:-1]
+    for l in range(p.log_n - 1, -1, -1):
+        m = 1 << l
+        half = n >> (l + 1)
+        x = x.reshape(*batch, m, 2, half)
+        s = table[m : 2 * m].reshape(*(1,) * len(batch), m, 1)
+        u = x[..., 0, :]
+        v = x[..., 1, :]
+        x = np.stack([(u + v) % Q, (u - v) * s % Q], axis=-2)
+    x = x.reshape(*batch, n)
+    n_inv = pow(n, Q - 2, Q)
+    return x * n_inv % Q
+
+
+def negacyclic_mul(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """c = a * b mod (x^n + 1, q) via NTT. Shapes broadcast over (..., n)."""
+    return intt(ntt(a) * ntt(b) % Q)
 
 
 @functools.lru_cache(maxsize=None)

@@ -24,8 +24,7 @@ import functools
 import numpy as np
 import torch
 
-from falcon_r1cs_tpu.params import FalconParams, Q, get_params
-
+from ..params import FalconParams, Q, get_params
 from . import _build
 from .limbs import LIMB_BITS, NUM_LIMBS, int_to_limbs
 from .ntt_limb import intt_with_hints, ntt_with_hints

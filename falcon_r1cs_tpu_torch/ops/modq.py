@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from falcon_r1cs_tpu.params import Q
+from ..params import Q
 
 _INV_Q_F32 = torch.tensor(1.0 / Q, dtype=torch.float32)
 

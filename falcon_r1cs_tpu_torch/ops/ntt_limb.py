@@ -22,9 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from falcon_r1cs_tpu.params import FalconParams
-
 from ..falcon.ntt import intt_torch
+from ..params import FalconParams
 from .limbs import NUM_LIMBS, divmod_q, from_small, int_to_limbs, normalize
 
 _SEMI_LIMBS = NUM_LIMBS + 1  # 192-bit headroom: top limb never carries out

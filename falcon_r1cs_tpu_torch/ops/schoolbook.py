@@ -20,8 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from falcon_r1cs_tpu.params import Q, get_params
-
+from ..params import Q, get_params
 from . import _build
 from .cuda_ntt import _check_input
 

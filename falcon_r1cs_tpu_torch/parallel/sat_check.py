@@ -26,8 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from falcon_r1cs_tpu.r1cs.coo import CompiledR1CS
-
+from ..r1cs.coo import CompiledR1CS
 from ..utils.config import RuntimeConfig
 
 

@@ -10,7 +10,8 @@ tensors out, on one device.  Stages:
   4. batched witness generation (device, witness/engine.py)
   5. optional canonical (B, W, 5) packing (device, witness/export_device.py)
 
-The host stages are the JAX package's own (they contain no JAX).
+The host stages are the port's copies of the JAX package's host modules
+(`falcon/`, `native/`).
 """
 
 from __future__ import annotations
@@ -20,11 +21,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from falcon_r1cs_tpu.falcon import hash_to_point_batch
-from falcon_r1cs_tpu.native import native_decode_pk_batch, native_decode_sig_batch
-from falcon_r1cs_tpu.params import FalconParams, Q
-
+from .falcon import hash_to_point_batch
 from .falcon.ntt import ntt_torch
+from .native import native_decode_pk_batch, native_decode_sig_batch
+from .params import FalconParams, Q
 from .utils.config import RuntimeConfig
 from .witness.engine import witness_engine
 from .witness.export_device import packer_ntt

@@ -1,0 +1,541 @@
+"""G1 multi-scalar multiplication on a CUDA card: the Groth16 prover's hot
+loop, on the hand-written Fq kernels K4, K5 and K6 (csrc/fq_mont.cu).
+
+The port of the JAX package's wide-tree Pallas engine
+(`falcon_r1cs_tpu/snark/tpu_msm_blocks.py`, reached from
+`tpu_msm.g1_msm_tpu` with Pallas on) and of its host helpers in
+`falcon_r1cs_tpu/snark/tpu_msm.py`.  Per MSM:
+
+- host: scalars -> signed window digits (magnitude | sign << w, buckets
+  1..2^(w-1)); the scalars of infinity points are zeroed, so a leaf is
+  infinite iff its digit is 0;
+- device, once per point set: the CRS points to Montgomery limb-major
+  (35, n) tensors by K4 (`to_mont` = mont_mul by R^2), cached on the
+  G1Array;
+- device, per group of G windows: one stable sort of the digits, a
+  bit-reversed leaf placement (position p holds sorted element brev(p),
+  so every merge level pairs the two contiguous halves), the merge tree
+  over the sorted run with one point add per merge -- K6 at level 1
+  (both leaves affine), K5 at every other level -- each bucket's total
+  scattered once into a row bank, then the weighted bucket sum
+  sum_d d B_d by two tree sums and two short suffix scans (K5);
+- host: the Horner fold of the per-window sums in exact bigints.
+
+Differences from the JAX engine, with the same results: coordinates are
+(35, m) limb-major with no (8, 128) blocks and no padding to 1024-point
+kernel blocks; groups run in a Python loop (lax.map there) and the group
+size is an argument (an environment variable there); the digit sort is
+`torch.sort(stable=True)` plus a gather (a variadic sort there).  Left
+out: the XLA row-layout engine, the dispatch watchdog, the bank and
+weighted-sum switches (the row bank and the automatic rule stay) and the
+sharded MSM.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..ops import fq_mont as fq
+from ..ops.fq import mont_mul_cuda, point_add_aff_cuda, point_add_cuda
+from .bls12_381 import P as Q381, R as FR_R
+from .bls12_381 import g1_add, g1_double, g1_to_affine
+from .points import G1Array, ints_to_limbs
+
+WINDOW = 12
+LIMB12 = 12
+
+
+# --------------------------------------------------------------------------
+# host helpers (tpu_msm.py)
+# --------------------------------------------------------------------------
+
+
+def _u64_rows_to_limb12(rows: np.ndarray, nl: int | None = None) -> np.ndarray:
+    """(n, k) u64 little-endian -> (n, nl) int32 12-bit limbs, by
+    vectorised bit-slicing."""
+    if nl is None:
+        nl = fq.NL
+    rows = np.ascontiguousarray(rows, dtype=np.uint64)
+    n, k = rows.shape
+    out = np.zeros((n, nl), dtype=np.int32)
+    for l in range(nl):
+        bit = LIMB12 * l
+        i, r = divmod(bit, 64)
+        if i >= k:
+            break
+        v = rows[:, i] >> np.uint64(r)
+        if r + LIMB12 > 64 and i + 1 < k:
+            v = v | (rows[:, i + 1] << np.uint64(64 - r))
+        out[:, l] = (v & np.uint64((1 << LIMB12) - 1)).astype(np.int32)
+    return out
+
+
+def _window_digits(scalars_u64: np.ndarray, window: int = WINDOW) -> np.ndarray:
+    """(n, 4) u64 -> (nw, n) int32 window digits."""
+    sc = np.ascontiguousarray(scalars_u64, dtype=np.uint64)
+    nw = (255 + window - 1) // window
+    out = np.zeros((nw, sc.shape[0]), dtype=np.int32)
+    mask = np.uint64((1 << window) - 1)
+    for w in range(nw):
+        bit = w * window
+        i, r = divmod(bit, 64)
+        if i >= sc.shape[1]:
+            break
+        v = sc[:, i] >> np.uint64(r)
+        if r + window > 64 and i + 1 < sc.shape[1]:
+            v = v | (sc[:, i + 1] << np.uint64(64 - r))
+        out[w] = (v & mask).astype(np.int32)
+    return out
+
+
+def _window_digits_signed(scalars_u64: np.ndarray,
+                          window: int = WINDOW) -> np.ndarray:
+    """Signed-digit recode: digits in [-(2^(w-1)-1), 2^(w-1)] packed as
+    magnitude | (sign << w).  Standard carry recode: v = d + carry;
+    v > 2^(w-1) emits v - 2^w and carries 1.  Scalars are < r < 2^255, so
+    the top window absorbs the final carry (checked)."""
+    d = _window_digits(scalars_u64, window)
+    half = 1 << (window - 1)
+    full = 1 << window
+    out = np.zeros_like(d)
+    carry = np.zeros(d.shape[1], dtype=np.int32)
+    for w in range(d.shape[0]):
+        v = d[w] + carry
+        neg = v > half
+        carry = neg.astype(np.int32)
+        sv = np.where(neg, v - full, v)
+        out[w] = np.abs(sv) | (np.where(sv < 0, 1, 0) << window)
+    if carry.any():
+        raise ValueError("signed recode: top-window carry overflow")
+    return out
+
+
+def _points_std_limbs(points, n_pad: int) -> tuple[np.ndarray, np.ndarray]:
+    """G1Array -> standard-form (n_pad, 35) int32 limbs of X and Y, the
+    padding rows zero (padding carries zero scalars)."""
+    n = len(points)
+    pad = np.zeros((n_pad - n, fq.NL), np.int32)
+    xs = np.concatenate([_u64_rows_to_limb12(points.xs), pad])
+    ys = np.concatenate([_u64_rows_to_limb12(points.ys), pad])
+    return xs, ys
+
+
+def _jac_mont_to_affine(ox, oy, oz):
+    """Montgomery-limb Jacobian -> standard affine ints (host side)."""
+    rinv = pow(fq.R_MONT, -1, Q381)
+    xi = fq.limbs_to_int(ox) * rinv % Q381
+    yi = fq.limbs_to_int(oy) * rinv % Q381
+    zi = fq.limbs_to_int(oz) * rinv % Q381
+    zinv = pow(zi, -1, Q381)
+    zi2 = zinv * zinv % Q381
+    return (xi * zi2 % Q381, yi * zi2 % Q381 * zinv % Q381)
+
+
+def _scalars_u64(scalars) -> np.ndarray:
+    if isinstance(scalars, np.ndarray) and scalars.dtype == np.uint64:
+        return np.ascontiguousarray(scalars)
+    return ints_to_limbs([int(s) % FR_R for s in scalars], 4)
+
+
+# --------------------------------------------------------------------------
+# the wide-tree engine (tpu_msm_blocks.py)
+# --------------------------------------------------------------------------
+
+
+def _flat(add):
+    """A point add over flat (35, ..., m) points: reshape the batch axes
+    into one contiguous (35, M) launch and back (the counterpart of the
+    JAX engine's `_flat_add_factory` and `_flat_aff_add_factory`, with no
+    padding to kernel blocks)."""
+
+    def run(p1, p2):
+        shp = p1[-1].shape
+        m = int(np.prod(shp))
+
+        def prep(pt):
+            return tuple(
+                c.reshape(fq.NL, m).contiguous() for c in pt[:-1]
+            ) + (pt[-1].reshape(m).contiguous(),)
+
+        out = add(prep(p1), prep(p2))
+        return tuple(c.reshape((fq.NL,) + shp) for c in out[:3]) + (
+            out[3].reshape(shp),
+        )
+
+    return run
+
+
+_add = _flat(point_add_cuda)          # K5
+_aff_add = _flat(point_add_aff_cuda)  # K6
+
+
+def _sel(cond, a, b):
+    """Select between two flat point tuples by a (..., m) bool."""
+    return (
+        torch.where(cond[None], a[0], b[0]),
+        torch.where(cond[None], a[1], b[1]),
+        torch.where(cond[None], a[2], b[2]),
+        torch.where(cond, a[3], b[3]),
+    )
+
+
+def _scatter(bank, key, val, valid, nb: int):
+    """Write flat point columns into the row bank (W*nb + 1, 3*35 + 1):
+    each valid lane's x|y|z limbs and flag as one contiguous row at key +
+    its window's offset; invalid lanes go to the spare row W*nb.  The
+    valid keys of one scatter are distinct, so only the spare row is
+    written twice."""
+    W, c = key.shape
+    off = (torch.arange(W, dtype=torch.int64, device=key.device) * nb)[:, None]
+    idx = torch.where(valid, key.long() + off, W * nb).reshape(-1)
+    m = idx.shape[0]
+    rows = torch.cat(
+        [
+            val[0].reshape(fq.NL, m).t(),
+            val[1].reshape(fq.NL, m).t(),
+            val[2].reshape(fq.NL, m).t(),
+            val[3].reshape(m, 1).to(torch.int32),
+        ],
+        dim=1,
+    )
+    bank[idx] = rows
+
+
+def _bucket_reduce_flat(pt_aff, keys, nb: int):
+    """Bucket sums of a key-sorted, bit-reversed run of AFFINE leaves:
+    X, Y (35, W, n), flags (W, n), keys (W, n).  Each merge tree node
+    summarises its range by (H, T, kf, kl): the sums of its first and last
+    segments and their keys; merging costs one point add (the bridge
+    T_left + H_right), and each segment's total is emitted at the unique
+    merge where both its ends become interior.  Level 1 adds two affine
+    leaves (K6) and emits nothing (a level-1 node is one segment).
+    Returns the limb-major bucket planes (35, W*nb) x3 + flags (W*nb,)."""
+    W, n = keys.shape
+    assert n & (n - 1) == 0 and n >= 2
+    dev = keys.device
+    # unwritten rows read as infinity: inf column (3*35) = 1
+    bank = torch.zeros((W * nb + 1, 3 * fq.NL + 1), dtype=torch.int32, device=dev)
+    bank[:, 3 * fq.NL] = 1
+    # --- level 1: affine add, no emissions possible ---
+    c2 = n // 2
+    lk, rk = keys[..., :c2], keys[..., c2:]
+    l_aff = tuple(a[..., :c2] for a in pt_aff)
+    r_aff = tuple(a[..., c2:] for a in pt_aff)
+    bridge = _aff_add(l_aff, r_aff)
+    same = lk == rk
+    one = fq.consts(dev)["one"][:, None, None].expand(fq.NL, W, c2)
+    H = _sel(same, bridge, (l_aff[0], l_aff[1], one, l_aff[2]))
+    T = _sel(same, bridge, (r_aff[0], r_aff[1], one, r_aff[2]))
+    kf, kl = lk, rk
+    c = c2
+    while c > 1:
+        c2 = c // 2
+        lH = tuple(a[..., :c2] for a in H)
+        rH = tuple(a[..., c2:c] for a in H)
+        lT = tuple(a[..., :c2] for a in T)
+        rT = tuple(a[..., c2:c] for a in T)
+        lkf, rkf = kf[..., :c2], kf[..., c2:c]
+        lkl, rkl = kl[..., :c2], kl[..., c2:c]
+        bridge = _add(lT, rH)
+        same = lkl == rkf
+        ls = lkf == lkl  # left node spans a single segment
+        rs = rkf == rkl
+        H = _sel(same & ls, bridge, lH)
+        T = _sel(same & rs, bridge, rT)
+        valA = _sel(same, bridge, lT)
+        _scatter(bank, lkl, valA, ~ls & ~(same & rs), nb)
+        _scatter(bank, rkf, rH, ~same & ~rs, nb)
+        kf, kl = lkf, rkl
+        c = c2
+    _scatter(bank, kf, H, torch.ones((W, 1), dtype=torch.bool, device=dev), nb)
+    _scatter(bank, kl, T, kl != kf, nb)
+    live = bank[: W * nb]
+    return (
+        live[:, : fq.NL].t(),
+        live[:, fq.NL : 2 * fq.NL].t(),
+        live[:, 2 * fq.NL : 3 * fq.NL].t(),
+        live[:, 3 * fq.NL] != 0,
+    )
+
+
+def _tree_sum_flat(pt):
+    """Fold the (power-of-two) last axis by pairwise adds of its halves."""
+    c = pt[0].shape[-1]
+    assert c & (c - 1) == 0
+    while c > 1:
+        c2 = c // 2
+        pt = _add(tuple(a[..., :c2] for a in pt), tuple(a[..., c2:c] for a in pt))
+        c = c2
+    return pt
+
+
+def _hs_suffix_weighted(pt, nbk: int):
+    """sum_{j>=1} j X_j over the last axis of pt = (coords (35, W, nbk),
+    inf (W, nbk)): a Hillis-Steele suffix prefix over the reversed order
+    (dropping the weight-0 slot) plus a pairwise tree.  Returns coords
+    (35, W, 1) + inf (W, 1)."""
+    pt = tuple(a[..., 1:].flip(-1) for a in pt)
+    L = nbk - 1
+    P2 = 1 << max(1, (L - 1).bit_length())
+
+    def pad_end(x, fill):
+        f = torch.full(x.shape[:-1] + (P2 - L,), fill, dtype=x.dtype, device=x.device)
+        return torch.cat([x, f], dim=-1)
+
+    pt = (pad_end(pt[0], 0), pad_end(pt[1], 0), pad_end(pt[2], 0), pad_end(pt[3], True))
+    s = 1
+    while s < P2:
+        shifted = tuple(
+            torch.cat([torch.zeros_like(a[..., :s]), a[..., : P2 - s]], dim=-1)
+            for a in pt[:3]
+        ) + (torch.cat([torch.ones_like(pt[3][..., :s]), pt[3][..., : P2 - s]], dim=-1),)
+        pt = _add(pt, shifted)
+        s <<= 1
+    live = torch.arange(P2, device=pt[3].device) < L
+    pt = (pt[0], pt[1], pt[2], pt[3] | ~live[None, :])
+    return _tree_sum_flat(pt)
+
+
+def _wsum_decomp(nb: int) -> bool:
+    """The bucket-index decomposition applies when L = nb - 1 is a power
+    of two >= 4 (every window >= 3 of the signed recode); else the full
+    Hillis-Steele sum."""
+    L = nb - 1
+    return L >= 4 and not L & (L - 1)
+
+
+def wsum_weights(nb: int) -> list:
+    """Static weights of the part columns `_weighted_bucket_sum_flat`
+    returns (powers of two, applied by the host fold as doublings)."""
+    if not _wsum_decomp(nb):
+        return [1]
+    L = nb - 1
+    clb = (L.bit_length() - 1) // 2
+    return [1 << clb, 1, L]
+
+
+def _weighted_bucket_sum_flat(bufs, W: int, nb: int):
+    """Per-window weighted bucket sums over the (35, W*nb) bank.
+
+    With d = CL*hi + lo (CL*CH = L = nb-1, the top bucket L its own part):
+      sum_d d B_d = CL sum_hi hi C_hi + sum_lo lo D_lo + L B_L,
+      C_hi = sum_lo B[hi, lo],  D_lo = sum_hi B[hi, lo]:
+    two tree sums over the reshaped bank and two short suffix scans.
+    Returns part columns: coords (35, W, P) + inf (W, P) with the weights
+    wsum_weights(nb)."""
+    bx, by, bz, binf = bufs
+    bx = bx.reshape(fq.NL, W, nb)
+    by = by.reshape(fq.NL, W, nb)
+    bz = bz.reshape(fq.NL, W, nb)
+    binf = binf.reshape(W, nb)
+    if not _wsum_decomp(nb):
+        return _hs_suffix_weighted((bx, by, bz, binf), nb)
+    L = nb - 1
+    CL = 1 << ((L.bit_length() - 1) // 2)
+    CH = L // CL
+    body = (
+        bx[..., :L].reshape(fq.NL, W, CH, CL),
+        by[..., :L].reshape(fq.NL, W, CH, CL),
+        bz[..., :L].reshape(fq.NL, W, CH, CL),
+        binf[..., :L].reshape(W, CH, CL),
+    )
+    C = tuple(t[..., 0] for t in _tree_sum_flat(body))  # sum over lo
+    D = tuple(t[..., 0] for t in _tree_sum_flat(tuple(t.transpose(-1, -2) for t in body)))
+    S1 = _hs_suffix_weighted(C, CH)  # sum hi C_hi
+    S2 = _hs_suffix_weighted(D, CL)  # sum lo D_lo
+    top = (bx[..., L:], by[..., L:], bz[..., L:], binf[..., L:])
+    return tuple(torch.cat([S1[i], S2[i], top[i]], dim=-1) for i in range(4))
+
+
+@functools.lru_cache(maxsize=None)
+def _brev(n: int) -> np.ndarray:
+    bits = (n - 1).bit_length()
+    out = np.zeros(n, dtype=np.int64)
+    for p in range(n):
+        r, x = 0, p
+        for _ in range(bits):
+            r = (r << 1) | (x & 1)
+            x >>= 1
+        out[p] = r
+    return out
+
+
+def _group_windows(n: int, nw: int, cap: int | None = None) -> int:
+    """Windows per wide-tree group: the largest divisor of nw within `cap`
+    (default: a group's live top-level tree state, ~4 x 3 coords x 35 x
+    W x n int32, within ~6 GB)."""
+    if cap is None:
+        cap = int(6e9 // (4 * 3 * fq.NL * n * 4))
+    cap = max(1, min(nw, cap))
+    for g in range(cap, 0, -1):
+        if nw % g == 0:
+            return g
+    return 1
+
+
+def _window_sums(digits, Xm, Ym, window: int, G: int):
+    """Per-window bucket-weighted part sums of one point set.
+
+    digits (nW, n) int32 signed-packed on the device (any stack of windows
+    over the points Xm, Ym (35, n) Montgomery limbs: one MSM's nw windows
+    or K MSMs' nw*K); returns coords (35, nW, P) + inf (nW, P).  Windows
+    run G at a time."""
+    n = digits.shape[1]
+    nb = (1 << (window - 1)) + 1  # magnitudes 0..2^(w-1)
+    nW = digits.shape[0]
+    assert nW % G == 0, (nW, G)
+    mag = digits & ((1 << window) - 1)
+    sign = digits >> window
+    d_sorted, order = torch.sort(mag, dim=1, stable=True)
+    s_sorted = torch.gather(sign, 1, order)
+    brev = torch.from_numpy(_brev(n)).to(digits.device)
+    idx_all = order[:, brev]
+    d_all = d_sorted[:, brev]
+    s_all = s_sorted[:, brev]
+    parts = []
+    for g in range(nW // G):
+        sl = slice(g * G, (g + 1) * G)
+        idx, d, s = idx_all[sl], d_all[sl], s_all[sl]
+        Yg = Ym[:, idx]
+        Yg = torch.where(s[None] == 1, -Yg, Yg)
+        # AFFINE leaves (implicit Z = one); a zero digit is an infinity
+        pt = (Xm[:, idx], Yg, d == 0)
+        bufs = _bucket_reduce_flat(pt, d, nb)
+        parts.append(_weighted_bucket_sum_flat(bufs, G, nb))
+    return (
+        torch.cat([p[0] for p in parts], dim=1),
+        torch.cat([p[1] for p in parts], dim=1),
+        torch.cat([p[2] for p in parts], dim=1),
+        torch.cat([p[3] for p in parts], dim=0),
+    )
+
+
+def _points_mont(points, n_pad: int, device):
+    """Montgomery-domain limb-major (35, n_pad) coordinate tensors on
+    `device`, converted by one K4 launch (mont_mul by R^2) over X|Y and
+    cached on the G1Array: the prover reuses the same CRS queries for
+    every proof (the G1Array must not be mutated after first use)."""
+    device = torch.device(device)
+    key = (n_pad, str(device))
+    cache = getattr(points, "_gpu_mont_cache", None)
+    if cache is not None and key in cache:
+        return cache[key]
+    xs, ys = _points_std_limbs(points, n_pad)
+    std = torch.from_numpy(np.ascontiguousarray(np.concatenate([xs, ys]).T)).to(device)
+    r2 = fq.consts(device)["r2"][:, None].expand_as(std).contiguous()
+    mont = mont_mul_cuda(std, r2)
+    out = (mont[:, :n_pad].contiguous(), mont[:, n_pad:].contiguous())
+    if cache is None:
+        cache = points._gpu_mont_cache = {}
+    cache[key] = out
+    return out
+
+
+def _fold_windows_host(ws, nw: int, K: int, window: int):
+    """Horner-fold the per-window part sums on the host, exactly:
+    S_{w,k} = sum_p weight_p part_{w,k,p} (weights applied as doublings),
+    total_k = sum_w 2^(window w) S_{w,k}, over Jacobian bigints.  Returns
+    K affine tuples / None."""
+    nb = (1 << (window - 1)) + 1
+    shifts = [wt.bit_length() - 1 for wt in wsum_weights(nb)]
+    P = len(shifts)
+    ox, oy, oz, oinf = (t.cpu().numpy() for t in ws)
+    ox = ox.reshape(fq.NL, nw, K, P)
+    oy = oy.reshape(fq.NL, nw, K, P)
+    oz = oz.reshape(fq.NL, nw, K, P)
+    oinf = oinf.reshape(nw, K, P)
+    rinv = pow(fq.R_MONT, -1, Q381)
+    out = []
+    for k in range(K):
+        total = None
+        for w in range(nw - 1, -1, -1):
+            if total is not None:
+                for _ in range(window):
+                    total = g1_double(total)
+            for p in range(P):
+                if bool(oinf[w, k, p]):
+                    continue
+                pt = (
+                    fq.limbs_to_int(ox[:, w, k, p]) * rinv % Q381,
+                    fq.limbs_to_int(oy[:, w, k, p]) * rinv % Q381,
+                    fq.limbs_to_int(oz[:, w, k, p]) * rinv % Q381,
+                )
+                for _ in range(shifts[p]):
+                    pt = g1_double(pt)
+                total = g1_add(total, pt)
+        out.append(g1_to_affine(total) if total is not None else None)
+    return out
+
+
+def g1_msm_blocks(points, digits, n_pad: int, window: int, device="cuda",
+                  group: int | None = None):
+    """Single MSM through the wide tree: digits (nw, n_pad) int32 with the
+    scalars of infinity points already zeroed.  Returns an affine point
+    or None."""
+    Xm, Ym = _points_mont(points, n_pad, device)
+    nw = digits.shape[0]
+    G = _group_windows(n_pad, nw, group)
+    ws = _window_sums(torch.from_numpy(digits).to(Xm.device), Xm, Ym, window, G)
+    return _fold_windows_host(ws, nw, 1, window)[0]
+
+
+def g1_msm_blocks_multi(points, digits_all, n_pad: int, K: int, window: int,
+                        device="cuda", group: int | None = None):
+    """K MSMs over one point set: digits_all (nw, K, n_pad) int32,
+    flattened w-major so all nw*K windows share one group loop.  Returns
+    a list of K affine points / None."""
+    Xm, Ym = _points_mont(points, n_pad, device)
+    nw = digits_all.shape[0]
+    flat = np.ascontiguousarray(digits_all.reshape(nw * K, n_pad))
+    G = _group_windows(n_pad, nw * K, group)
+    ws = _window_sums(torch.from_numpy(flat).to(Xm.device), Xm, Ym, window, G)
+    return _fold_windows_host(ws, nw, K, window)
+
+
+def _pad_digits(digits: np.ndarray, n_pad: int) -> np.ndarray:
+    n = digits.shape[-1]
+    if n_pad == n:
+        return digits
+    pad = np.zeros(digits.shape[:-1] + (n_pad - n,), np.int32)
+    return np.concatenate([digits, pad], axis=-1)
+
+
+def g1_msm_gpu(points, scalars, window: int | None = None, device="cuda",
+               group: int | None = None):
+    """MSM over a points.G1Array on `device`; returns an affine point or
+    None.  `window` trades bucket count (2^(w-1)) against window count;
+    None uses 12.  `group` caps the windows per tree (default: by memory).
+    Points pad to the next power of two >= 8 (infinities, zero scalars)."""
+    if window is None:
+        window = WINDOW
+    assert isinstance(points, G1Array)
+    n = len(points)
+    n_pad = max(8, 1 << (n - 1).bit_length())
+    sc = _scalars_u64(scalars)
+    if points.inf.any():
+        # a leaf is infinite iff its digit is 0: zero these scalars
+        sc = sc.copy()
+        sc[points.inf.astype(bool)] = 0
+    digits = _pad_digits(_window_digits_signed(sc, window), n_pad)
+    return g1_msm_blocks(points, digits, n_pad, window, device, group)
+
+
+def g1_msm_gpu_multi(points, scalars_multi, window: int | None = None,
+                     device="cuda", group: int | None = None):
+    """K MSMs over one G1Array, (K, n) scalars; returns a list of K affine
+    points / None."""
+    if window is None:
+        window = WINDOW
+    assert isinstance(points, G1Array)
+    n = len(points)
+    n_pad = max(8, 1 << (n - 1).bit_length())
+    rows = [_scalars_u64(sc) for sc in scalars_multi]
+    if points.inf.any():
+        mask = points.inf.astype(bool)
+        rows = [np.where(mask[:, None], np.uint64(0), r) for r in rows]
+    digits = np.stack([_window_digits_signed(r, window) for r in rows], axis=1)
+    return g1_msm_blocks_multi(points, _pad_digits(digits, n_pad), n_pad,
+                               len(rows), window, device, group)

@@ -17,13 +17,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-from falcon_r1cs_tpu.circuits import (
+from ..circuits import (
     FalconDualNTTVerificationCircuit,
     FalconNTTVerificationCircuit,
     FalconSchoolBookVerificationCircuit,
 )
-from falcon_r1cs_tpu.params import get_params
-
+from ..params import get_params
 from ..utils.config import RuntimeConfig
 
 

@@ -32,11 +32,10 @@ from dataclasses import dataclass
 
 import torch
 
-from falcon_r1cs_tpu.params import FalconParams, Q, get_params
-
 from ..ops.modq import divmod_q as fast_divmod_q
 from ..ops.modq import mul_mod_q, sub_mod_q
 from ..ops.ntt_limb import intt_then_hints, ntt_hints
+from ..params import FalconParams, Q, get_params
 
 
 def _bits(x, count):

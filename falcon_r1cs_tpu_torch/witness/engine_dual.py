@@ -28,12 +28,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from falcon_r1cs_tpu.params import FalconParams, Q, get_params
-
 from ..falcon.ntt import intt_torch
 from ..ops.modq import divmod_q as fast_divmod_q
 from ..ops.modq import mul_mod_q, sub_mod_q
 from ..ops.ntt_limb import ntt_hints
+from ..params import FalconParams, Q, get_params
 from .engine import _bound_block_512, _bound_block_1024, _modq_block
 from .layout import _host, modq_seg
 

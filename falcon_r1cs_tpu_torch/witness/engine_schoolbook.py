@@ -28,12 +28,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from falcon_r1cs_tpu.params import FIELD_MODULUS, FalconParams, Q, get_params
-
 from ..falcon.ntt import intt_torch, ntt_torch
 from ..ops.modq import divmod_q as fast_divmod_q
 from ..ops.modq import mul_mod_q, sub_mod_q
 from ..ops.schoolbook import schoolbook_prods_cuda
+from ..params import FIELD_MODULUS, FalconParams, Q, get_params
 from .engine import _bits, _bound_block_512, _bound_block_1024, _lt_q_chain, _norm_block
 from .layout import _host
 

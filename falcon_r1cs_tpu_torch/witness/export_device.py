@@ -21,8 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from falcon_r1cs_tpu.params import get_params
-
+from ..params import get_params
 from .engine_schoolbook import NEG_Q_INV_MOD_P, Q_INV_MOD_P
 from .layout import bound_width, num_witness
 

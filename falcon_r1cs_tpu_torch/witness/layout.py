@@ -12,9 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from falcon_r1cs_tpu.params import FalconParams
-
 from ..ops.limbs import limbs_to_ints
+from ..params import FalconParams
 
 
 def bound_width(params: FalconParams) -> int:

@@ -14,8 +14,9 @@ import torch
 
 from falcon_r1cs_tpu_torch import FALCON_512, FALCON_1024, Q, ProverInputPipeline, RuntimeConfig
 from falcon_r1cs_tpu_torch.falcon import compress_signature, encode_public_key, make_instance
-from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt
+from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, fq_mont
 from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods_cuda
+from falcon_r1cs_tpu_torch.snark import gpu_msm, native_backend
 from falcon_r1cs_tpu_torch.witness import (
     packer_dual,
     packer_schoolbook,
@@ -175,3 +176,98 @@ def test_schoolbook_engine_on_card_matches_cpu(cuda, n):
         packer_schoolbook(n, cuda)(got).cpu(),
         packer_schoolbook(n, torch.device("cpu"))(want),
     )
+
+
+def _mont_points(m, seed, device):
+    """m random G1 points (native fixed-base) as limb-major Montgomery X, Y
+    on `device`, converted by K4 (mont_mul by R^2)."""
+    rng = np.random.default_rng(seed)
+    arr = native_backend.g1_fixed_base_batch([int(x) for x in rng.integers(1, 2**62, m)])
+    xs, ys = gpu_msm._points_std_limbs(arr, m)
+    r2 = fq_mont.consts(device)["r2"][:, None].expand(35, m).contiguous()
+    X = fq.mont_mul_cuda(torch.from_numpy(xs.T.copy()).to(device), r2)
+    Y = fq.mont_mul_cuda(torch.from_numpy(ys.T.copy()).to(device), r2)
+    return X, Y
+
+
+def _select_path_points(m, device):
+    """Two operands hitting every select path of the point adds: rows 0:64
+    doubling, 64:96 P + (-P), 96:128 inf1, 128:160 inf2, the rest chord."""
+    X, Y = _mont_points(m, 61, device)
+    perm = torch.from_numpy(np.random.default_rng(62).permutation(m)).to(device)
+    X2, Y2 = X[:, perm].clone(), Y[:, perm].clone()
+    X2[:, :96] = X[:, :96]
+    Y2[:, :64] = Y[:, :64]
+    Y2[:, 64:96] = fq_mont.sub_mod(torch.zeros_like(Y[:, 64:96]), Y[:, 64:96])
+    inf1 = torch.zeros(m, dtype=torch.bool, device=device)
+    inf1[96:128] = True
+    inf2 = torch.zeros(m, dtype=torch.bool, device=device)
+    inf2[128:160] = True
+    return (X, Y, inf1), (X2, Y2, inf2)
+
+
+def test_fq_kernels_match_plain(cuda):
+    """K4 (depth 1 and 4), K5 and K6 against their plain versions, bit for
+    bit, on every select path."""
+    m = 4096
+    (X, Y, inf1), (X2, Y2, inf2) = _select_path_points(m, cuda)
+    for depth in (1, 4):
+        before = fq.mont_mul_cuda.launches
+        got = fq.mont_mul_cuda(X, Y2, depth)
+        assert fq.mont_mul_cuda.launches == before + 1
+        assert torch.equal(got, fq.mont_mul_cuda.plain(X, Y2, depth))
+    one = fq_mont.consts(cuda)["one"][:, None].expand(35, m).contiguous()
+    p1, p2 = (X, Y, one, inf1), (X2, Y2, one.clone(), inf2)
+    got = fq.point_add_cuda(p1, p2)
+    want = fq.point_add_cuda.plain(p1, p2)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert got[3][64:96].all()
+    # Jacobian operands with Z != one: the outputs of the first add
+    got2 = fq.point_add_cuda(got, p1)
+    for g, w in zip(got2, fq.point_add_cuda.plain(want, p1)):
+        assert torch.equal(g, w)
+    a1, a2 = (X, Y, inf1), (X2, Y2, inf2)
+    got = fq.point_add_aff_cuda(a1, a2)
+    for g, w in zip(got, fq.point_add_aff_cuda.plain(a1, a2)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+def test_fq_wrappers_reject_bad_inputs(cuda):
+    X, Y = _mont_points(256, 63, cuda)
+    f = torch.zeros(256, dtype=torch.bool, device=cuda)
+    for a, b in (
+        (X.long(), Y),                              # dtype
+        (X[:, :128].contiguous(), Y),               # shape
+        (X[:34].contiguous(), Y[:34].contiguous()),  # limb count
+        (Y.t().contiguous().t(), Y),                 # not contiguous
+        (X, Y.cpu()),                                # mixed devices
+    ):
+        with pytest.raises(ValueError):
+            fq.mont_mul_cuda(a, b)
+    with pytest.raises(ValueError):
+        fq.point_add_cuda((X, Y, X, f.int()), (X, Y, X, f))           # flag dtype
+    with pytest.raises(ValueError):
+        fq.point_add_aff_cuda((X, Y, f[:128]), (X, Y, f))              # flag shape
+    with pytest.raises(ValueError):
+        fq.point_add_aff_cuda((X.t().contiguous().t(), Y, f), (X, Y, f))
+
+
+def test_msm_on_card_matches_native(cuda):
+    """g1_msm_gpu at n = 2^12 (window 12) equals the native C MSM, and the
+    K-fold form too; the point set converts once (one K4 launch)."""
+    n = 1 << 12
+    rng = np.random.default_rng(64)
+    arr = native_backend.g1_fixed_base_batch([int(x) for x in rng.integers(1, 2**62, n)])
+    scalars = [rng.integers(0, 2**63, size=(n, 4), dtype=np.uint64) for _ in range(2)]
+    for sc in scalars:
+        sc[:, 3] >>= np.uint64(2)
+    k4, k6 = fq.mont_mul_cuda.launches, fq.point_add_aff_cuda.launches
+    got = gpu_msm.g1_msm_gpu(arr, scalars[0], device=cuda)
+    assert got == native_backend.g1_msm(arr, scalars[0])
+    assert fq.mont_mul_cuda.launches == k4 + 1
+    assert fq.point_add_aff_cuda.launches == k6 + 1
+    got = gpu_msm.g1_msm_gpu_multi(arr, scalars, device=cuda)
+    assert got == native_backend.g1_msm_multi(arr, np.stack(scalars))
+    assert fq.mont_mul_cuda.launches == k4 + 1

@@ -14,12 +14,14 @@ import torch
 
 import falcon_r1cs_tpu_torch.witness.engine_dual as engine_dual
 from falcon_r1cs_tpu import ConstraintSystem, FalconDualNTTVerificationCircuit
-from falcon_r1cs_tpu.falcon import make_instance, ntt
-from falcon_r1cs_tpu.params import FALCON_512, FALCON_1024
 from falcon_r1cs_tpu.parallel.sat_check import ResidueSystem as JaxResidueSystem
-from falcon_r1cs_tpu.r1cs.coo import compile_circuit
+from falcon_r1cs_tpu.params import get_params as jax_params
+from falcon_r1cs_tpu.r1cs.coo import compile_circuit as jax_compile_circuit
 from falcon_r1cs_tpu.witness import export_device as jax_export
 from falcon_r1cs_tpu.witness.engine_dual import generate_witness_dual as jax_generate
+from falcon_r1cs_tpu_torch import FALCON_512, FALCON_1024, compile_circuit
+from falcon_r1cs_tpu_torch import FalconDualNTTVerificationCircuit as PortDualCircuit
+from falcon_r1cs_tpu_torch.falcon import make_instance, ntt
 from falcon_r1cs_tpu_torch.parallel import ResidueSystem
 from falcon_r1cs_tpu_torch.witness import (
     interleave_witness_dual,
@@ -42,7 +44,8 @@ def _torch(arrays):
 
 
 def _jax_engine(params):
-    return jax.jit(lambda s, p, h: jax_generate(s, p, h, params, use_pallas=False))
+    jp = jax_params(params.n)
+    return jax.jit(lambda s, p, h: jax_generate(s, p, h, jp, use_pallas=False))
 
 
 @pytest.mark.parametrize("params", [FALCON_512, FALCON_1024])
@@ -115,10 +118,12 @@ def test_is_satisfied_matches_jax():
     insts, _ = _inputs(params, 1, seed=35)
     cs = ConstraintSystem()
     FalconDualNTTVerificationCircuit.build_circuit(insts[0]).generate_constraints(cs)
-    comp = compile_circuit(FalconDualNTTVerificationCircuit, insts[0], cache=False)
+    comp = compile_circuit(PortDualCircuit, insts[0], cache=False)
     assert len(comp.field_rows) == 2
     rs = ResidueSystem(comp, "cpu")
-    jrs = JaxResidueSystem(comp)
+    jrs = JaxResidueSystem(
+        jax_compile_circuit(FalconDualNTTVerificationCircuit, insts[0], cache=False)
+    )
 
     good = np.asarray(cs.full_assignment(), dtype=object)
     n, I = params.n, comp.num_instance

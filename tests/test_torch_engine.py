@@ -10,16 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from falcon_r1cs_tpu import (
-    ConstraintSystem,
-    FalconDualNTTVerificationCircuit,
-    FalconNTTVerificationCircuit,
-    FalconSchoolBookVerificationCircuit,
-)
-from falcon_r1cs_tpu.falcon import make_instance, ntt
-from falcon_r1cs_tpu.params import FALCON_512, FALCON_1024
+import falcon_r1cs_tpu_torch as port
+from falcon_r1cs_tpu import ConstraintSystem, FalconNTTVerificationCircuit
 from falcon_r1cs_tpu.witness import export_device as jax_export
 from falcon_r1cs_tpu.witness.engine import jitted_engine
+from falcon_r1cs_tpu_torch import FALCON_512, FALCON_1024
+from falcon_r1cs_tpu_torch.falcon import make_instance, ntt
 from falcon_r1cs_tpu_torch.witness import (
     circuit_witness,
     export_device,
@@ -112,11 +108,11 @@ def test_circuit_witness_api():
     params = FALCON_512
     inst, (sig, pk_ntt, hm_ntt) = _inputs(params, 1, seed=14)
     inputs = {
-        FalconNTTVerificationCircuit: (sig, pk_ntt, hm_ntt),
-        FalconDualNTTVerificationCircuit: (
+        port.FalconNTTVerificationCircuit: (sig, pk_ntt, hm_ntt),
+        port.FalconDualNTTVerificationCircuit: (
             inst[0].sig_signed[None].astype(np.int32), pk_ntt, hm_ntt,
         ),
-        FalconSchoolBookVerificationCircuit: (
+        port.FalconSchoolBookVerificationCircuit: (
             sig, inst[0].h[None].astype(np.int32), inst[0].hm[None].astype(np.int32),
         ),
     }

@@ -6,13 +6,21 @@ import numpy as np
 import pytest
 import torch
 
-from falcon_r1cs_tpu import FalconNTTVerificationCircuit
-from falcon_r1cs_tpu.falcon import compress_signature, encode_public_key, make_instance
+import falcon_r1cs_tpu
 from falcon_r1cs_tpu.parallel import sat_check as jax_sat
-from falcon_r1cs_tpu.params import FALCON_512, FALCON_1024
+from falcon_r1cs_tpu.params import get_params as jax_params
 from falcon_r1cs_tpu.pipeline import ProverInputPipeline as JaxPipeline
-from falcon_r1cs_tpu.r1cs.coo import compile_circuit
-from falcon_r1cs_tpu_torch import ProverInputPipeline, ResidueSystem, RuntimeConfig
+from falcon_r1cs_tpu.r1cs.coo import compile_circuit as jax_compile_circuit
+from falcon_r1cs_tpu_torch import (
+    FALCON_512,
+    FALCON_1024,
+    FalconNTTVerificationCircuit,
+    ProverInputPipeline,
+    ResidueSystem,
+    RuntimeConfig,
+    compile_circuit,
+)
+from falcon_r1cs_tpu_torch.falcon import compress_signature, encode_public_key, make_instance
 from falcon_r1cs_tpu_torch.parallel.sat_check import crt_primes
 
 
@@ -45,13 +53,16 @@ def out_2(wire_512):
 @pytest.fixture(scope="module")
 def residue_systems(wire_512):
     insts, _ = wire_512
+    jax_compiled = jax_compile_circuit(
+        falcon_r1cs_tpu.FalconNTTVerificationCircuit, insts[0], cache=False
+    )
     compiled = compile_circuit(FalconNTTVerificationCircuit, insts[0], cache=False)
-    return jax_sat.ResidueSystem(compiled), ResidueSystem(compiled, "cpu")
+    return jax_sat.ResidueSystem(jax_compiled), ResidueSystem(compiled, "cpu")
 
 
 def test_run_wire_matches_jax_pipeline(wire_512, out_2):
     _, wire = wire_512
-    want = JaxPipeline(FALCON_512, pack=True).run_wire(*[w[:2] for w in wire])
+    want = JaxPipeline(jax_params(512), pack=True).run_wire(*[w[:2] for w in wire])
     got, _ = out_2
     assert np.array_equal(got.packed.numpy(), np.array(want.packed))
     assert np.array_equal(got.pk_ntt.numpy(), np.array(want.pk_ntt))

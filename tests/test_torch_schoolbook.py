@@ -17,14 +17,16 @@ from jax.experimental import pallas as pl
 
 import falcon_r1cs_tpu.ops.pallas_schoolbook as psb
 from falcon_r1cs_tpu import ConstraintSystem, FalconSchoolBookVerificationCircuit
-from falcon_r1cs_tpu.falcon import make_instance
-from falcon_r1cs_tpu.params import FALCON_512, FALCON_1024, Q
 from falcon_r1cs_tpu.parallel.sat_check import ResidueSystem as JaxResidueSystem
-from falcon_r1cs_tpu.r1cs.coo import compile_circuit
+from falcon_r1cs_tpu.params import get_params as jax_params
+from falcon_r1cs_tpu.r1cs.coo import compile_circuit as jax_compile_circuit
 from falcon_r1cs_tpu.witness import export_device as jax_export
 from falcon_r1cs_tpu.witness.engine_schoolbook import (
     generate_witness_schoolbook as jax_generate,
 )
+from falcon_r1cs_tpu_torch import FALCON_512, FALCON_1024, Q, compile_circuit
+from falcon_r1cs_tpu_torch import FalconSchoolBookVerificationCircuit as PortSchoolBookCircuit
+from falcon_r1cs_tpu_torch.falcon import make_instance
 from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods, schoolbook_prods_cuda
 from falcon_r1cs_tpu_torch.parallel import ResidueSystem
 from falcon_r1cs_tpu_torch.witness import (
@@ -49,7 +51,8 @@ def _torch(arrays):
 
 
 def _jax_engine(params):
-    return jax.jit(lambda s, p, h: jax_generate(s, p, h, params, use_pallas=False))
+    jp = jax_params(params.n)
+    return jax.jit(lambda s, p, h: jax_generate(s, p, h, jp, use_pallas=False))
 
 
 def _eq(want, got):
@@ -174,10 +177,12 @@ def test_is_satisfied_matches_jax():
     insts, arrays = _inputs(params, 1, seed=27)
     cs = ConstraintSystem()
     FalconSchoolBookVerificationCircuit.build_circuit(insts[0]).generate_constraints(cs)
-    comp = compile_circuit(FalconSchoolBookVerificationCircuit, insts[0], cache=False)
+    comp = compile_circuit(PortSchoolBookCircuit, insts[0], cache=False)
     assert len(comp.field_rows) == 2 * params.n
     rs = ResidueSystem(comp, "cpu")
-    jrs = JaxResidueSystem(comp)
+    jrs = JaxResidueSystem(
+        jax_compile_circuit(FalconSchoolBookVerificationCircuit, insts[0], cache=False)
+    )
 
     good = np.asarray(cs.full_assignment(), dtype=object)
     n, I = params.n, comp.num_instance
