@@ -13,7 +13,10 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
 - the Groth16 path: one signature of the main path's batch -> its packed
   witness as prover scalars -> `prove(g1_backend="gpu")`, whose four G1
   MSMs (n_pad = 2^18) run on the Fq kernels, against the native C prover
-  with the same r and s; each MSM against the native C MSM.
+  with the same r and s; each MSM against the native C MSM;
+- the semi-carry hint path: `ntt_with_hints_v3` on 1024 rows of
+  Falcon-1024 coefficients, one launch of the semi-carry kernel, its
+  (t, b) equal to the hint kernel's on the same rows.
 
 It builds the kernels from csrc/, checks that each path launched its
 kernels (counts set to 0 just before the path, read just after), holds
@@ -356,16 +359,11 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
     the same r and s, verify True and False on a tampered proof or input;
     then each of the four G1 MSMs against the native C MSM, cold (with the
     K4 conversion) and warm.  Returns the prove run's launch counts."""
-    from falcon_r1cs_tpu_torch.ops import fq
     from falcon_r1cs_tpu_torch.snark import gpu_msm, groth16, native_backend
     from falcon_r1cs_tpu_torch.snark.bls12_381 import R
     from falcon_r1cs_tpu_torch.snark.points import ints_to_limbs, packed_to_limb_rows
 
     assert native_backend.available(), "the native C Groth16 backend did not build"
-    counted = dict(
-        counted, mont_mul_kernel=fq.mont_mul_cuda, point_add_kernel=fq.point_add_cuda,
-        point_add_aff_kernel=fq.point_add_aff_cuda,
-    )
     rng = np.random.default_rng(20261018)
     t0 = time.perf_counter()
     pk = groth16.setup(
@@ -467,6 +465,69 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
     return launches
 
 
+def semi_path(dev, counted):
+    """The semi-carry hint entry at n = 1024, B = N_SIGS: exactly one
+    launch of K8 and none of any other kernel, (t, b) equal to K1's on the
+    same rows.  Returns the launch counts of the counted run."""
+    from falcon_r1cs_tpu_torch import FALCON_1024, Q
+    from falcon_r1cs_tpu_torch.ops import cuda_ntt, ntt_v3
+
+    p = FALCON_1024
+    x = torch.from_numpy(
+        np.random.default_rng(20261020).integers(0, Q, size=(N_SIGS, p.n))
+        .astype(np.int32)
+    ).to(dev)
+    (t, b), seconds, launches = counted_run(counted, lambda: ntt_v3.ntt_with_hints_v3(x, p))
+    assert launches == dict.fromkeys(counted, 0) | {"ntt_semi_kernel": 1}, launches
+    t1, b1 = cuda_ntt.ntt_with_hints_cuda(x, p)
+    assert t.shape == (11, N_SIGS, p.n) and b.shape == (N_SIGS, p.n)
+    assert torch.equal(t, t1) and torch.equal(b, b1), "ntt_with_hints_v3 != K1"
+    log(f"semi-carry path n={p.n} B={N_SIGS}: {seconds:.3f} s (first call); launches "
+        f"{launches}; (t, b) == the hint kernel's")
+    return launches
+
+
+def semi_kernel_vs_plain(dev, launches):
+    """K8 against ntt_semi at n = 512 and 1024, B = N_SIGS, with one row of
+    all q - 1 and one of all 0, limb for limb; the entry over it against K1;
+    times of K8, the entry, K1 and the plain version; K8's record."""
+    from falcon_r1cs_tpu_torch import FALCON_512, FALCON_1024, Q
+    from falcon_r1cs_tpu_torch.ops import cuda_ntt, ntt_limb, ntt_v3
+
+    wrapper = ntt_v3.ntt_semi_cuda
+    for p in (FALCON_512, FALCON_1024):
+        x = torch.from_numpy(
+            np.random.default_rng(p.n + 2).integers(0, Q, size=(N_SIGS, p.n))
+            .astype(np.int32)
+        ).to(dev)
+        x[-2], x[-1] = Q - 1, 0
+        got = wrapper(x, p)
+        want = wrapper.plain(x, p)
+        err = max_abs_err([got], [want])
+        assert err == 0, f"ntt_semi_kernel n={p.n} differs from its plain version"
+        redundant = int(((want < 0) | (want > 0xFFFF)).any(2).any(0).sum())
+        assert redundant > 0, "no row where parallel and sequential carries differ"
+        for a, c in zip(ntt_v3.ntt_with_hints_v3(x, p), cuda_ntt.ntt_with_hints_cuda(x, p)):
+            assert torch.equal(a, c), f"ntt_with_hints_v3 n={p.n} != K1"
+        ms = cuda_ms(lambda: wrapper(x, p))
+        entry_ms = cuda_ms(lambda: ntt_v3.ntt_with_hints_v3(x, p))
+        k1_ms = cuda_ms(lambda: cuda_ntt.ntt_with_hints_cuda(x, p))
+        plain_ms = cuda_ms(lambda: wrapper.plain(x, p), reps=10, inner=2)
+        log(f"ntt_semi_kernel n={p.n} B={N_SIGS}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bit-equal ({redundant} rows hold limbs outside "
+            f"[0, 2^16)); ntt_with_hints_v3 {entry_ms:.4f} ms == hint kernel "
+            f"{k1_ms:.4f} ms on the same rows")
+    # x read, 12 limbs written, the stage tables; one multiply a limb of
+    # each butterfly's hi slot, all 12 limbs every stage (no trim)
+    coeffs = N_SIGS * p.n
+    return record(
+        "ntt_semi_kernel", "falcon_r1cs_tpu_torch/csrc/ntt_v3.cu",
+        "tools/pallas_ntt_v3.py:49", launches["ntt_semi_kernel"], err, ms, plain_ms,
+        4 * (13 * coeffs + p.log_n * p.n + (p.log_n + 1) * 12),
+        N_SIGS * p.log_n * (p.n // 2) * 12,
+    )
+
+
 def fq_kernels_vs_plain(dev, launches):
     """K4 (depth 1 and 4), K5 and K6 against their plain versions at
     m = M_FQ points with the doubling, P + (-P) and infinity rows of the
@@ -549,7 +610,7 @@ def main():
         make_instance,
         ntt,
     )
-    from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt
+    from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, ntt_v3
     from falcon_r1cs_tpu_torch.ops.ntt_limb import intt_then_hints
     from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods_cuda
     from falcon_r1cs_tpu_torch.witness import packer_ntt, witness_engine
@@ -662,10 +723,17 @@ def main():
         "one bumped witness -> exactly that signature False")
 
     # -- 4b. the dual-NTT and schoolbook paths: counts reset per path ------
-    path_counted = dict(counted, schoolbook_prods_kernel=schoolbook_prods_cuda)
+    # the other kernels join the counts only here, after the main path's
+    # all-launched check: each later path launches exactly its own
+    path_counted = dict(
+        counted, schoolbook_prods_kernel=schoolbook_prods_cuda,
+        mont_mul_kernel=fq.mont_mul_cuda, point_add_kernel=fq.point_add_cuda,
+        point_add_aff_kernel=fq.point_add_aff_cuda, ntt_semi_kernel=ntt_v3.ntt_semi_cuda,
+    )
     dual_path(port, dev, insts, path_counted)
     sb_launches = schoolbook_path(port, dev, insts, path_counted)
     g16_launches = groth16_path(port, dev, compiled, packed, instance, path_counted)
+    semi_launches = semi_path(dev, path_counted)
 
     # -- 5. each kernel against its plain version, on the card -------------
     records = []
@@ -744,6 +812,7 @@ def main():
         library_ms=cuda_ms(lambda: torch.add(y, 1)),
     ))
     records += fq_kernels_vs_plain(dev, g16_launches)
+    records.append(semi_kernel_vs_plain(dev, semi_launches))
 
     # device part of the main path alone: engine + packer on uploaded inputs
     engine = witness_engine(params.n)

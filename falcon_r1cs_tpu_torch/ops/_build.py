@@ -44,6 +44,7 @@ _ARGTYPES = {
     "intt_ntt_hints_launch": [
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P,
     ],
+    "ntt_semi_launch": [_P, _P, _P, _P, _I, _I, _P],
     "add_one_launch": [_P, _P, _I, _P],
     "schoolbook_prods_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
     "fq_load_constants": [_P] * 8,

@@ -27,7 +27,7 @@ import torch
 from ..params import FalconParams, Q, get_params
 from . import _build
 from .limbs import LIMB_BITS, NUM_LIMBS, int_to_limbs
-from .ntt_limb import intt_with_hints, ntt_with_hints
+from .ntt_limb import SEMI_LIMBS, intt_with_hints, ntt_with_hints
 
 _INV_Q_F32 = float(np.float32(1.0 / Q))
 
@@ -99,15 +99,29 @@ def _tables(n: int, device: torch.device) -> dict:
     return tables_from_params(get_params(n), device)
 
 
-def _check_input(x, params: FalconParams, name: str):
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
+@functools.lru_cache(maxsize=None)
+def _semi_tables(n: int, device: torch.device) -> dict:
+    """The semi-carry kernel's tables: K1's twiddles tw (log_n, n) and its
+    bound limbs widened by a zero column to (log_n + 1, SEMI_LIMBS), as
+    tools/pallas_ntt_v3.py pads them."""
+    tab = _tables(n, device)
+    pad = SEMI_LIMBS - NUM_LIMBS
+    return {"tw": tab["tw"], "bounds": torch.nn.functional.pad(tab["bounds"], (0, pad))}
+
+
+def _check_layout(x, params: FalconParams, name: str):
     if x.dtype != torch.int32:
         raise ValueError(f"{name}: want int32, got {x.dtype}")
     if x.dim() != 2 or x.shape[1] != params.n:
         raise ValueError(f"{name}: want (B, {params.n}), got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
+
+
+def _check_input(x, params: FalconParams, name: str):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    _check_layout(x, params, name)
 
 
 def ntt_with_hints_cuda(x, params: FalconParams):

@@ -11,10 +11,17 @@ constraint-free butterfly recursion of the NTT gadget:
 then the final mod-q hint per coefficient: quotient t = floor(V/q) (the
 ~2^146 witness) and remainder b = V mod q.
 
-`ntt_with_hints` is the plain version of the hint kernel (K1) and
-`intt_with_hints` that of the fused INTT + hint kernel (K2); the wrappers
-in ops/cuda_ntt.py take them for CPU tensors, and the tests and the chip
-smoke hold the kernels against them.
+The plain versions of the kernels that compute it:
+
+- `ntt_semi`, the stage loop over SEMI_LIMBS redundant limbs with one
+  parallel carry round per step, is that of the semi-carry kernel (K8,
+  ops/ntt_v3.py);
+- `ntt_with_hints`, `ntt_semi` then the exact normalisation and divmod,
+  is that of the hint kernel (K1);
+- `intt_with_hints` is that of the fused INTT + hint kernel (K2).
+
+The wrappers in ops/cuda_ntt.py and ops/ntt_v3.py take them for CPU
+tensors, and the tests and the chip smoke hold the kernels against them.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from ..falcon.ntt import intt_torch
 from ..params import FalconParams
 from .limbs import NUM_LIMBS, divmod_q, from_small, int_to_limbs, normalize
 
-_SEMI_LIMBS = NUM_LIMBS + 1  # 192-bit headroom: top limb never carries out
+SEMI_LIMBS = NUM_LIMBS + 1  # 192-bit headroom: top limb never carries out
 
 
 def _semi_norm(x):
@@ -40,15 +47,14 @@ def _semi_norm(x):
     return low + shifted
 
 
-def ntt_with_hints(x, params: FalconParams):
-    """Bound-tracked NTT of (batch, n) int32 coefficients in [0, q).
+def ntt_semi(x, params: FalconParams):
+    """The stage loop of the bound-tracked NTT of (batch, n) int32
+    coefficients in [0, q), over SEMI_LIMBS redundant 16-bit limbs.
 
-    Returns (t_limbs, b):
-      t_limbs: (11, batch, n) int32 -- mod-q quotient hints
-      b:       (batch, n) int32           -- NTT outputs in [0, q)
-    """
+    Returns the semi-normalised state (SEMI_LIMBS, batch, n) int32: each
+    limb in about [-3, 2^16 + 2], the top limb zero, the value exact."""
     n, log_n = params.n, params.log_n
-    L = _SEMI_LIMBS
+    L = SEMI_LIMBS
     dev = x.device
     table = torch.tensor(params.ntt_table, dtype=torch.int32, device=dev)
     bounds = torch.from_numpy(
@@ -69,8 +75,17 @@ def ntt_with_hints(x, params: FalconParams):
         new0 = _semi_norm(u + v)
         new1 = _semi_norm(u + (c - v))
         out = torch.stack([new0, new1], dim=3).reshape(L, batch, n)
+    return out
 
-    t_limbs, b = divmod_q(normalize(out))
+
+def ntt_with_hints(x, params: FalconParams):
+    """Bound-tracked NTT of (batch, n) int32 coefficients in [0, q).
+
+    Returns (t_limbs, b):
+      t_limbs: (11, batch, n) int32 -- mod-q quotient hints
+      b:       (batch, n) int32           -- NTT outputs in [0, q)
+    """
+    t_limbs, b = divmod_q(normalize(ntt_semi(x, params)))
     return t_limbs[:NUM_LIMBS], b
 
 

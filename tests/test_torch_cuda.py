@@ -14,7 +14,7 @@ import torch
 
 from falcon_r1cs_tpu_torch import FALCON_512, FALCON_1024, Q, ProverInputPipeline, RuntimeConfig
 from falcon_r1cs_tpu_torch.falcon import compress_signature, encode_public_key, make_instance
-from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, fq_mont
+from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, fq_mont, ntt_limb, ntt_v3
 from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods_cuda
 from falcon_r1cs_tpu_torch.snark import gpu_msm, native_backend
 from falcon_r1cs_tpu_torch.witness import (
@@ -57,6 +57,36 @@ def test_kernels_match_plain(cuda, params):
     ):
         assert got.dtype == want.dtype and torch.equal(got, want)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("params", [FALCON_512, FALCON_1024])
+def test_semi_kernel_matches_plain(cuda, params):
+    """K8's semi state equals ntt_semi limb for limb, edge rows included,
+    and the entry over it equals K1's (t, b).  At 256 random rows some
+    limbs of the state lie outside [0, 2^16), where a sequential carry
+    chain would differ from the parallel rounds."""
+    x = _rand((256, params.n), 32, cuda)
+    x[-2], x[-1] = 0, Q - 1
+    before = ntt_v3.ntt_semi_cuda.launches
+    got = ntt_v3.ntt_semi_cuda(x, params)
+    assert ntt_v3.ntt_semi_cuda.launches == before + 1
+    want = ntt_limb.ntt_semi(x, params)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert not got[-1].any() and ((want < 0) | (want > 0xFFFF)).any()
+    for a, b in zip(ntt_v3.ntt_with_hints_v3(x, params),
+                    cuda_ntt.ntt_with_hints_cuda(x, params)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+def test_semi_wrapper_rejects_bad_inputs(cuda):
+    good = _rand((2, 512), 33, cuda)
+    for bad in (good.long(), good[:, :256].contiguous(),
+                _rand((512, 2), 34, cuda).t()):
+        with pytest.raises(ValueError):
+            ntt_v3.ntt_semi_cuda(bad, FALCON_512)
+    with pytest.raises(ValueError):
+        ntt_v3.ntt_semi_cuda(good, FALCON_1024)
 
 
 def test_add_one_and_self_test(cuda):
