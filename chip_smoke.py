@@ -20,10 +20,13 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
 
 It builds the kernels from csrc/, checks that each path launched its
 kernels (counts set to 0 just before the path, read just after), holds
-each kernel against its plain torch version on the card (bit-exact: all
-integer arithmetic), and times both with CUDA events.  Each kernel's
+each kernel against its plain torch version on the card (all integer
+arithmetic: bit-exact, except K5, whose coordinates must agree mod q,
+compared in canonical form, and whose flags must be equal; also on rows
+far from canonical), and times both with CUDA events.  Each kernel's
 bound is the larger of its bytes over the card's memory rate and its
-int32 multiply-adds over the card's int32 rate (H100_* below).
+int32 multiply(-add)s over the card's int32 rate (H100_* below).  K7's
+launch path is costed step by step beside torch.add.
 
     python3 chip_smoke.py
 
@@ -34,6 +37,7 @@ the line before that the per-kernel JSON record.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -58,30 +62,38 @@ TIMING_REPS = 20
 # lanes, so its int32 multiply-add peak is 132 x 64 x 1.98e9 per second.
 H100_BYTES_PER_S = 3.35e12
 H100_INT32_MAD_PER_S = 132 * 64 * 1.98e9
-# int32 multiply-adds of one lazy Montgomery product (csrc/fq_mont.cu): the
-# 35 x 35 product, the 34 low columns of T mu, the 34 x 35 product m q
-MONT_MUL_MADS = 35 * 35 + 34 * 35 // 2 + 34 * 35
-# of one mod-q equality test: alpha q (35) and 30 CRT residues of 37 limbs
-EQ_MADS = 35 + 37 * 30
+# int32 multiplies of one 381-bit Montgomery product, the least the card
+# needs for it: over 12 words of 32 bits (CIOS, R' = 2^384), a b is 144
+# word products, each a mul.lo and a mul.hi (288), and the reduction per
+# word is m = t_0 q' (1) plus m q (12 words, lo and hi: 24), 12 x 25 = 300;
+# 288 + 300 = 588.  A square a a needs only the 12 x 13 / 2 = 78 distinct
+# word products (156 multiplies) and the same reduction: 456.  It counts
+# the bounds of K4, K5 and K6 alike, whatever form each kernel computes in;
+# an equality test of canonical words is a compare, no multiply.  (Before,
+# the count followed the 35-limb form of the TPU kernels: 35 x 35 + 34 x
+# 35 / 2 + 34 x 35 = 3,010 multiply-adds a product and 35 + 37 x 30 = 1,145
+# a CRT equality test.)
+MONT_MUL_MULS = 2 * 12 * 12 + 12 * (1 + 2 * 12)
+MONT_SQR_MULS = 2 * 12 * 13 // 2 + 12 * (1 + 2 * 12)
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def record(name, source, replaces, launches, err, ms, plain_ms, nbytes, mads,
-           library_ms=None):
+def record(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
+           library_ms=None, **extra):
     """One entry of the kernels line; the bound is the larger of the bytes
-    the function must move and its int32 multiply-adds, each over the
-    card's peak rate."""
+    the function must move and its int32 multiply(-add)s, each over the
+    card's peak rate; `extra` keys follow the contract's."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = mads / H100_INT32_MAD_PER_S * 1e3
+    t_ops = ops / H100_INT32_MAD_PER_S * 1e3
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=library_ms,
+        library_ms=library_ms, **extra,
     )
 
 
@@ -528,15 +540,42 @@ def semi_kernel_vs_plain(dev, launches):
     )
 
 
-def fq_kernels_vs_plain(dev, launches):
-    """K4 (depth 1 and 4), K5 and K6 against their plain versions at
-    m = M_FQ points with the doubling, P + (-P) and infinity rows of the
-    JAX package's tests, bit-equal; times, bounds and records."""
+def ptxas_stats(log_text, kernel):
+    """Registers, stack and spill bytes of one kernel from `-Xptxas -v`."""
+    lines = log_text.splitlines()
+    for k, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            block = "\n".join(lines[k : k + 4])
+            regs = re.search(r"Used (\d+) registers", block)
+            stack = re.search(r"(\d+) bytes stack frame", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            return {
+                "registers": int(regs.group(1)) if regs else None,
+                "stack": int(stack.group(1)) if stack else None,
+                "spill_stores": int(spill.group(1)) if spill else None,
+                "spill_loads": int(spill.group(2)) if spill else None,
+            }
+    raise RuntimeError(f"no ptxas lines for {kernel}")
+
+
+def resident(registers, threads):
+    """(blocks, warps) an H100 SM holds at this register count: 65,536
+    registers, allocated per warp in units of 256, at most 32 blocks and 64
+    warps."""
+    warps = threads // 32
+    per_warp = -(-registers * 32 // 256) * 256
+    blocks = min(32, 64 // warps, 65536 // (per_warp * warps))
+    return blocks, blocks * warps
+
+
+def select_path_rows(m, dev, seed=20261019):
+    """m random Montgomery G1 points and a second operand with rows 0:64
+    doubling, 64:96 P + (-P), 96:128 inf1, 128:160 inf2, the rest chord
+    (the select paths of the JAX package's tests/test_pallas_fq.py)."""
     from falcon_r1cs_tpu_torch.ops import fq, fq_mont
     from falcon_r1cs_tpu_torch.snark import gpu_msm, native_backend
 
-    m = M_FQ
-    rng = np.random.default_rng(20261019)
+    rng = np.random.default_rng(seed)
     arr = native_backend.g1_fixed_base_batch([int(x) for x in rng.integers(1, 2**62, m)])
     xs, ys = gpu_msm._points_std_limbs(arr, m)
     r2 = fq_mont.consts(dev)["r2"][:, None].expand(fq_mont.NL, m).contiguous()
@@ -544,7 +583,6 @@ def fq_kernels_vs_plain(dev, launches):
     Y = fq.mont_mul_cuda(torch.from_numpy(ys.T.copy()).to(dev), r2)
     perm = torch.from_numpy(rng.permutation(m)).to(dev)
     X2, Y2 = X[:, perm].clone(), Y[:, perm].clone()
-    # rows 0:64 doubling, 64:96 P + (-P), 96:128 inf1, 128:160 inf2
     X2[:, :96] = X[:, :96]
     Y2[:, :64] = Y[:, :64]
     Y2[:, 64:96] = fq_mont.sub_mod(torch.zeros_like(Y[:, 64:96]), Y[:, 64:96])
@@ -553,6 +591,19 @@ def fq_kernels_vs_plain(dev, launches):
     inf2 = torch.zeros(m, dtype=torch.bool, device=dev)
     inf2[128:160] = True
     one = fq_mont.consts(dev)["one"][:, None].expand(fq_mont.NL, m).contiguous()
+    return (X, Y, one, inf1), (X2, Y2, one.clone(), inf2)
+
+
+def fq_kernels_vs_plain(dev, launches, build_log):
+    """K4 (depth 1 and 4) and K6 against their plain versions at m = M_FQ
+    points with the doubling, P + (-P) and infinity rows of the JAX
+    package's tests, bit-equal; K5 there by value, and on rows far from
+    canonical; K5's ptxas line; times, bounds and records."""
+    from falcon_r1cs_tpu_torch.ops import fq, fq_check, fq_mont
+
+    m = M_FQ
+    p1, p2 = select_path_rows(m, dev)
+    (X, Y, _, inf1), (X2, Y2, _, inf2) = p1, p2
     limb_bytes = fq_mont.NL * 4 * m
 
     def compare(name, wrapper, args, plain_reps=3):
@@ -560,43 +611,146 @@ def fq_kernels_vs_plain(dev, launches):
         torch.cuda.synchronize()
         want = wrapper.plain(*args)
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-        err = max_abs_err(got, want)
-        assert err == 0, f"{name} differs from its plain version"
+        referee_rows = None
+        if wrapper is fq.point_add_cuda:  # by value; the exact referee decides
+            err, referee_rows = fq_check.value_check(got, want, *args)
+            assert err == 0, f"{name} differs by value from its reference"
+        else:
+            err = max_abs_err(got, want)
+            assert err == 0, f"{name} differs from its plain version"
         ms = cuda_ms(lambda: wrapper(*args))
         plain_ms = cuda_ms(lambda: wrapper.plain(*args), reps=plain_reps, inner=1, warmup=1)
-        return err, ms, plain_ms
+        return err, ms, plain_ms, referee_rows
 
     records = []
     for depth in (4, 1):
-        err, ms, plain_ms = compare("mont_mul_kernel", fq.mont_mul_cuda, (X, Y2, depth))
+        err, ms, plain_ms, _ = compare("mont_mul_kernel", fq.mont_mul_cuda, (X, Y2, depth))
         log(f"mont_mul_kernel depth={depth} m={m}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bit-equal")
     records.append(record(
         "mont_mul_kernel", "falcon_r1cs_tpu_torch/csrc/fq_mont.cu",
         "falcon_r1cs_tpu/ops/pallas_fq.py:280", launches["mont_mul_kernel"], err, ms,
-        plain_ms, 3 * limb_bytes, MONT_MUL_MADS * m,
+        plain_ms, 3 * limb_bytes, MONT_MUL_MULS * m,
     ))
-    # by path: 64 doubling rows, 64 infinity rows, the rest chord
-    p1, p2 = (X, Y, one, inf1), (X2, Y2, one, inf2)
-    err, ms, plain_ms = compare("point_add_kernel", fq.point_add_cuda, (p1, p2))
-    mads = ((m - 128) * 16 + 64 * 15) * MONT_MUL_MADS + (m - 64) * 2 * EQ_MADS
-    log(f"point_add_kernel m={m}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bit-equal")
+    # K5 by value: max_abs_err is the largest limb difference of the
+    # canonical coordinates (and of the flags) against the reference
+    err, ms, plain_ms, referee_rows = compare("point_add_kernel", fq.point_add_cuda, (p1, p2))
+    log(f"point_add_kernel m={m}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, equal "
+        f"by value (canonical mod q), flags equal; {referee_rows} rows decided by the "
+        "exact host reference")
+    if build_log:
+        stats = ptxas_stats(build_log, "point_add_kernel")
+        blocks, warps = resident(stats["registers"], 128)
+        log(f"point_add_kernel ptxas: {stats}; {blocks} blocks, {warps} warps an SM")
+    fed = fq.point_add_cuda(p1, p2)
+    rows = 4096
+    head = tuple(c[..., :rows].contiguous() for c in fed)
+    affine = tuple(c[..., :rows].contiguous() for c in p2)
+    referred = {}
+    for kind in ("wide", "pos", "neg", "sub"):
+        far = tuple(fq_check.far_reps(fq_mont.canonical(c), kind, 70 + i).contiguous()
+                    for i, c in enumerate(head[:3])) + (head[3],)
+        referred[kind] = 0
+        for other in (head, affine):  # the tangent (same point), the chord
+            far_err, n = fq_check.value_check(
+                fq.point_add_cuda(far, other), fq.point_add_cuda.plain(far, other), far, other)
+            assert far_err == 0, f"point_add_kernel differs by value on {kind} rows"
+            referred[kind] += n
+    log(f"point_add_kernel on {rows} rows far from canonical (limbs at +-(2^12 + 2), "
+        "values near +-2^13 q, sub_mod(0, .) negatives; a K5 output with Z != one "
+        "plus itself and plus an affine point): equal by value, flags equal; rows "
+        f"where the plain version erred, decided by the exact host reference: {referred}")
+    # the select-path rows: 64 infinity rows (no product), 64 doubling rows
+    # (the prefix's 9 products less Z1 Z2, then 7: 8 products, 7 squares),
+    # the rest chord (the prefix's 9, then 7: 12 products, 4 squares)
+    muls = ((m - 128) * (12 * MONT_MUL_MULS + 4 * MONT_SQR_MULS)
+            + 64 * (8 * MONT_MUL_MULS + 7 * MONT_SQR_MULS))
     records.append(record(
         "point_add_kernel", "falcon_r1cs_tpu_torch/csrc/fq_mont.cu",
         "falcon_r1cs_tpu/ops/pallas_fq.py:325", launches["point_add_kernel"], err, ms,
-        plain_ms, 9 * limb_bytes + 3 * m, mads,
+        plain_ms, 9 * limb_bytes + 3 * m, muls,
+        referee_rows=referee_rows + sum(referred.values()),
     ))
-    err, ms, plain_ms = compare("point_add_aff_kernel", fq.point_add_aff_cuda,
-                                ((X, Y, inf1), (X2, Y2, inf2)))
-    mads = (m - 64) * (6 * MONT_MUL_MADS + 2 * EQ_MADS)
+    err, ms, plain_ms, _ = compare("point_add_aff_kernel", fq.point_add_aff_cuda,
+                                   ((X, Y, inf1), (X2, Y2, inf2)))
     log(f"point_add_aff_kernel m={m}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         "bit-equal")
+    # Z1 = Z2 = one: 64 doubling rows (1 product, 5 squares), the rest but
+    # the 64 infinity rows chord (4 products, 2 squares)
     records.append(record(
         "point_add_aff_kernel", "falcon_r1cs_tpu_torch/csrc/fq_mont.cu",
         "falcon_r1cs_tpu/ops/pallas_fq.py:398", launches["point_add_aff_kernel"], err,
-        ms, plain_ms, 7 * limb_bytes + 3 * m, mads,
+        ms, plain_ms, 7 * limb_bytes + 3 * m,
+        (m - 128) * (4 * MONT_MUL_MULS + 2 * MONT_SQR_MULS)
+        + 64 * (MONT_MUL_MULS + 5 * MONT_SQR_MULS),
     ))
     return records
+
+
+def launch_path_costs(y):
+    """K7's launch path on y, step by step: host microseconds a call of
+    each step alone (perf_counter over many calls), then CUDA-event ms of
+    three forms of the whole launch -- the earlier one (a device context, a
+    torch.cuda.Stream object, getattr on the library), a Stream object with
+    no context, and the form `_build.launch` takes (raw stream, context
+    only off the current device) -- beside torch.add(y, 1)."""
+    from falcon_r1cs_tpu_torch.ops import _build
+
+    lib = _build.library()
+    fn = _build._FN["add_one_launch"]
+    dev, n = y.device, y.numel()
+    out = torch.empty_like(y)
+    ptr_y, ptr_o = y.data_ptr(), out.data_ptr()
+
+    def host_us(step, calls=20000):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / calls * 1e6
+
+    def with_device():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {
+        "dtype + contiguity checks": lambda: y.dtype == torch.int32 and y.is_contiguous(),
+        "torch.empty_like": lambda: torch.empty_like(y),
+        "data_ptr x2": lambda: (y.data_ptr(), out.data_ptr()),
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream": lambda: _build._raw_stream(dev.index),
+        "torch.cuda.device context": with_device,
+        "torch._C._cuda_getDevice": _build._get_device,
+        "getattr(lib, name)": lambda: getattr(lib, "add_one_launch"),
+        "ctypes call (launch)": lambda: fn(ptr_y, ptr_o, n, _build._raw_stream(dev.index)),
+        "_build.launch": lambda: _build.launch("add_one_launch", dev, ptr_y, ptr_o, n),
+        "add_one (whole wrapper)": lambda: _build.add_one(y),
+        "torch.add(y, 1)": lambda: torch.add(y, 1),
+    }
+    costs = {k: host_us(v) for k, v in steps.items()}
+
+    def legacy():
+        o = torch.empty_like(y)
+        with torch.cuda.device(dev):
+            rc = getattr(lib, "add_one_launch")(
+                y.data_ptr(), o.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check_launch(rc, "add_one_launch")
+
+    def stream_object():
+        o = torch.empty_like(y)
+        _build.check_launch(
+            fn(y.data_ptr(), o.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream),
+            "add_one_launch")
+
+    forms = {
+        "context + Stream object + getattr": cuda_ms(legacy),
+        "Stream object, no context": cuda_ms(stream_object),
+        "_build.launch (raw stream)": cuda_ms(lambda: _build.add_one(y)),
+        "torch.add(y, 1)": cuda_ms(lambda: torch.add(y, 1)),
+    }
+    return costs, forms
 
 
 def main():
@@ -804,14 +958,22 @@ def main():
     y = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     err = max_abs_err([_build.add_one(y)], [_build.add_one.plain(y)])
     assert err == 0
+    k7_ms = cuda_ms(lambda: _build.add_one(y))
+    add_ms = cuda_ms(lambda: torch.add(y, 1))
     records.append(record(
         "add_one_kernel", "falcon_r1cs_tpu_torch/csrc/ntt_hints.cu",
         "falcon_r1cs_tpu/ops/pallas_support.py:17", launches["add_one_kernel"],
-        err, cuda_ms(lambda: _build.add_one(y)),
-        cuda_ms(lambda: _build.add_one.plain(y)), 2 * y.numel() * 4, 0,
-        library_ms=cuda_ms(lambda: torch.add(y, 1)),
+        err, k7_ms, cuda_ms(lambda: _build.add_one.plain(y)), 2 * y.numel() * 4, 0,
+        library_ms=add_ms,
     ))
-    records += fq_kernels_vs_plain(dev, g16_launches)
+    costs, forms = launch_path_costs(y)
+    log(f"add_one_kernel (8, 128): {k7_ms:.4f} ms against torch.add {add_ms:.4f} ms"
+        + (" (K7 loses)" if k7_ms > add_ms else ""))
+    log("  launch forms, CUDA events ms a call: "
+        + "; ".join(f"{k} {v:.4f}" for k, v in forms.items()))
+    log("  launch path, host us a call of each step: "
+        + "; ".join(f"{k} {v:.2f}" for k, v in costs.items()))
+    records += fq_kernels_vs_plain(dev, g16_launches, build_log)
     records.append(semi_kernel_vs_plain(dev, semi_launches))
 
     # device part of the main path alone: engine + packer on uploaded inputs

@@ -7,54 +7,80 @@
 //   mont_mul_kernel       <- _build_mul_cached's kernel (K4): x <- x*b, depth times
 //   point_add_kernel      <- _point_add_kernel (K5): complete Jacobian add
 //   point_add_aff_kernel  <- _point_add_aff_kernel (K6): affine + affine -> Jacobian
-// They compute exactly the arithmetic of ops/fq_mont.py (the plain
-// versions in ops/fq_mont.py and ops/fq.py): relaxed signed 12-bit limbs,
-// 35 a value, R = 2^408; the 35x35 limb product, three semi-normalisation
-// rounds, m = T mu mod R, u = m q, the f32 carry estimate of the exact
-// divide by R and the spill fold; the equality tests by an f32 quotient
-// estimate and 30 CRT residues.  Every output limb is bit-equal to the
-// plain version.
 //
-// Layout: limb-major, (35, m) int32 per coordinate and (m,) bool flags,
-// one thread per point.  Limb l of point i sits at l * m + i, so the
-// threads of a warp load and store neighbouring addresses.
+// Layout of every kernel's inputs and outputs: limb-major, (35, m) int32
+// relaxed signed 12-bit limbs per coordinate in the R = 2^408 Montgomery
+// domain (ops/fq_mont.py), and (m,) bool flags; one thread per point.
+// Limb l of point i sits at l * m + i, so the threads of a warp load and
+// store neighbouring addresses.
 //
-// What bounds them on an H100: integer multiply-adds, not bytes.  One
-// mont_mul is 1225 + 595 + 1190 = 3010 int32 multiply-adds (the a*b
-// product, the 34 low columns of T*mu, m*q) plus ~2,500 shifts, masks and
-// adds of the semi rounds; K5 runs 8 of them before its equality tests
-// and 8 (chord) or 7 (tangent) after, K6 runs 6 on either path.  K5 reads
-// about 850 bytes a point and writes 424: at ~16 multiply-adds per byte
-// read the card's int32 rate, not its bandwidth, sets the bound.
+// Two arithmetics live here.
 //
-// What the design does about it (a first, simple and exact design):
-// - one thread per point; every 35-limb value is a local array, and
-//   mont_mul is one non-inlined function whose 71-column accumulator and
-//   operands live in registers while it runs (fully unrolled, constant
-//   indices); values between calls live in the thread's local memory,
-//   cached in L1/L2 (ptxas reports the spill; see PERF.md);
-// - the mu product computes only the 34 columns that m keeps: a
-//   semi round carries upward only, so columns < 34 of the full product
-//   depend only on columns < 34;
+// K4 and K6 compute exactly the arithmetic of ops/fq_mont.py: 35 limbs,
+// the 35x35 limb product, three semi-normalisation rounds, m = T mu mod R,
+// u = m q, the f32 carry estimate of the exact divide by R and the spill
+// fold; the equality tests by an f32 quotient estimate and 30 CRT
+// residues.  Every output limb is bit-equal to the plain version.  One
+// such product is 1225 + 595 + 1190 = 3010 int32 multiply-adds plus ~2,500
+// shifts, masks and adds: a design for a machine without carries.
+//
+// K5 works on 12 words of 32 bits with exact carries, in the Montgomery
+// domain R' = 2^384 (PTX add-with-carry chains where the TPU had none):
+// - entry: each relaxed coordinate v (value x 2^408 mod q) becomes the
+//   words of v 2^-24 mod q = x 2^384 mod q, in [0, 2q), by one 24-bit
+//   Montgomery step (`from_limbs`), exact for |v| < 2^23 q (relaxed
+//   values stay below ~2^13 q, ops/fq_mont.py);
+// - body: CIOS Montgomery products over 12 words (q' = -q^-1 mod 2^32),
+//   lazy in [0, 2q) (4q < 2^384), and add, subtract and double on words
+//   with one conditional correction by 2q; the chord, the dbl-2007-bl
+//   tangent and the infinity / P + (-P) selection are those of the plain
+//   version; the two equality tests compare words reduced to [0, q);
+// - exit: each output coordinate times 2^24 (a product by 2^408 mod q),
+//   reduced to [0, q) and written as canonical 12-bit limbs (limb 34 is
+//   0, every limb in [0, 2^12)), a valid relaxed representation, so K5
+//   and K6 outputs mix in the MSM's merge tree.  Rows with an infinite
+//   operand copy the other operand as given.
+// So K5 is no longer limb-equal to its plain version (ops/fq.py
+// point_add): its X, Y and Z are each congruent mod q to the plain
+// version's, and its flag is exactly equal.  One product is 2 x 144
+// 32x32->64 multiply-adds plus their carry adds.
+//
+// What bounds them on an H100: integer multiplies, not bytes.  K5 reads
+// about 850 bytes a point and writes 424; its 16 (chord) or 15 (tangent)
+// products are ~4,600 wide multiply-adds a point.
+//
+// What the design does about it:
+// - one thread per point; K5 keeps every value in registers (fixed-size
+//   word arrays indexed only by constants, every helper inlined), converts
+//   an input only when it is first needed, lets Z1 and Z2 die in Z1 Z2
+//   before the equality tests, keeps the product's word loop rolled and
+//   runs its carries as PTX carry chains (below); ptxas: 249 registers, no
+//   stack, no spill, 2 blocks of 128 threads an SM (chip_smoke.py prints
+//   them; smaller register caps spilled and more warps an SM did not pay,
+//   PERF.md section 6);
+// - K4 and K6 keep their 35-limb values in local arrays between calls of
+//   one non-inlined limb product, whose accumulator lives in registers
+//   (ptxas reports their stack; see PERF.md);
 // - K5 and K6 branch on the infinity flags and on the equality tests and
 //   compute only the path they select (the plain versions compute both
-//   and select), so the chord add costs 16 products, not 23; the selected
-//   path's limbs are the same either way;
-// - constant tables (q, mu, the f32 weights, the CRT tables, one) sit in
-//   __constant__ memory, read at the same address by every thread.
-// Limb-parallel warps, shared-memory staging and tensor-core products are
-// left for later.
+//   and select);
+// - K5's constants (q's words, 2q's words, 2^408 mod q's words, q') are
+//   compile-time constants in this source; the limb kernels' tables (q,
+//   mu, the f32 weights, the CRT tables, one) are __constant__ memory
+//   loaded by fq_load_constants.
 //
-// Exactness (signed overflow is undefined in CUDA C++): all bounds of
-// ops/fq_mont.py hold (products < 2^29.1, semi rounds bring limbs to
-// <= 2^12 + 2), and every integer multiply and add here runs through
-// unsigned helpers that wrap mod 2^32 as the plain version's int32 tensors
-// do, so no expression has undefined behaviour even outside those bounds.
-// asr() is the arithmetic shift right of a signed int (nvcc shifts signed
-// values arithmetically; C++20 defines it so).  Nothing shifts a negative
-// value left: the spill fold multiplies.  The f32 estimates use
-// __fmul_rn / __fadd_rn (no FMA contraction, no fast math) and rintf
-// (round half to even, as torch.round and jnp.round).
+// Exactness (signed overflow is undefined in CUDA C++): the limb kernels
+// keep all bounds of ops/fq_mont.py (products < 2^29.1, semi rounds bring
+// limbs to <= 2^12 + 2), and every integer multiply and add on limbs runs
+// through unsigned helpers that wrap mod 2^32 as the plain version's int32
+// tensors do.  asr() is the arithmetic shift right of a signed int (nvcc
+// shifts signed values arithmetically; C++20 defines it so).  Nothing
+// shifts a negative value left: the spill fold multiplies.  The f32
+// estimates use __fmul_rn / __fadd_rn (no FMA contraction, no fast math)
+// and rintf (round half to even, as torch.round and jnp.round).  The word
+// arithmetic of K5 is unsigned throughout.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -91,6 +117,247 @@ __device__ __forceinline__ int wmul(int a, int b) {
 }
 // arithmetic shift right of a signed value (jnp/torch `>>` on int32)
 __device__ __forceinline__ int asr(int x, int s) { return x >> s; }
+
+// ---------------------------------------------------------------------------
+// K5: 12 words of 32 bits, R' = 2^384
+// ---------------------------------------------------------------------------
+
+constexpr int kW = 12;
+using u32 = uint32_t;
+using u64 = uint64_t;
+
+// q = 0x1a0111ea397fe69a4b1ba7b6434bacd764774b84f38512bf6730d2a0f6b0f624
+//       1eabfffeb153ffffb9feffffffffaaab, its 32-bit words, least first
+__constant__ u32 c_qw[kW] = {
+    0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
+    0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+// 2q, the correction of the lazy add and subtract (2q < 2^382)
+__constant__ u32 c_2qw[kW] = {
+    0xffff5556u, 0x73fdffffu, 0x62a7ffffu, 0x3d57fffdu, 0xed61ec48u, 0xce61a541u,
+    0xe70a257eu, 0xc8ee9709u, 0x869759aeu, 0x96374f6cu, 0x72ffcd34u, 0x340223d4u};
+// 2^408 mod q: a product by it multiplies a value of the R' domain by 2^24
+// (w 2^408 2^-384), the exit from R' = 2^384 back to R = 2^408
+__constant__ u32 c_exitw[kW] = {
+    0x0ea898bau, 0xa1d20348u, 0x27c9288fu, 0x47c6b37cu, 0x0c52aee5u, 0xdddb86ecu,
+    0x23d53606u, 0x7ec46095u, 0xb8dea933u, 0xbf713fa0u, 0x5b838ba6u, 0x18c3ccefu};
+// q' = -q^-1 mod 2^32 (q' q = -1 mod 2^32); its low 24 bits are -q^-1 mod
+// 2^24, the entry's Montgomery factor
+constexpr u32 kQInv = 0xfffcfffdu;
+constexpr u32 kLow24 = 0xffffffu;
+
+struct Fw {
+  u32 w[kW];
+};
+
+// PTX carry-chain steps (one instruction each, the carry flag passes from
+// one to the next; nothing between two steps of a chain writes the flag)
+__device__ __forceinline__ void mad_lo_cc(u32& d, u32 a, u32 b) {
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(d) : "r"(a), "r"(b));
+}
+__device__ __forceinline__ void madc_lo_cc(u32& d, u32 a, u32 b) {
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(d) : "r"(a), "r"(b));
+}
+// d = c + hi(a b) (+ carry), d need not be c's register
+__device__ __forceinline__ void mad_hi_cc(u32& d, u32 a, u32 b, u32 c) {
+  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+}
+__device__ __forceinline__ void madc_hi_cc(u32& d, u32 a, u32 b, u32 c) {
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+}
+__device__ __forceinline__ void madc_hi(u32& d, u32 a, u32 b, u32 c) {
+  asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+}
+__device__ __forceinline__ void addc_zero(u32& d) {
+  asm volatile("addc.u32 %0, %0, 0;" : "+r"(d));
+}
+
+// o = a b 2^-384 mod q, lazy: a, b < 2q -> o < 2q.  CIOS: per word b_i,
+// t += a b_i, then t = (t + m q) / 2^32 with m = t_0 q' mod 2^32; t stays
+// below a + q < 3q < 2^383 between the steps, so 13 words t[0..12] hold
+// it.  o may alias a or b.  One step is four carry chains: t += lo(a b_i),
+// t += hi(a b_i) one word up, t += lo(m q), then t = (t + hi(m q) one word
+// up) / 2^32 with the shift folded into the destinations: 51 PTX
+// instructions a step.  The word loop stays a loop (one copy of its body a
+// call site): the 16 inlined products of K5 fully unrolled outgrow the
+// instruction caches.
+__device__ __forceinline__ void mont(Fw& o, const Fw& a, const Fw& b) {
+  u32 t[kW + 1];
+#pragma unroll
+  for (int k = 0; k < kW + 1; ++k) t[k] = 0;
+  // b's words rotate down so every index is a constant (runtime indices
+  // would put them in local memory)
+  u32 bw[kW];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) bw[k] = b.w[k];
+#pragma unroll 1
+  for (int i = 0; i < kW; ++i) {
+    const u32 bi = bw[0];
+#pragma unroll
+    for (int k = 0; k < kW - 1; ++k) bw[k] = bw[k + 1];
+    // t < 2^383 here, so t + a b_i < 2^415 and t + m q < 2^416: 13 words,
+    // no carry out of t[12]
+    mad_lo_cc(t[0], a.w[0], bi);
+#pragma unroll
+    for (int j = 1; j < kW; ++j) madc_lo_cc(t[j], a.w[j], bi);
+    addc_zero(t[kW]);
+    mad_hi_cc(t[1], a.w[0], bi, t[1]);
+#pragma unroll
+    for (int j = 1; j < kW - 1; ++j) madc_hi_cc(t[j + 1], a.w[j], bi, t[j + 1]);
+    madc_hi(t[kW], a.w[kW - 1], bi, t[kW]);
+    const u32 mq = t[0] * kQInv;
+    mad_lo_cc(t[0], mq, c_qw[0]);  // t[0] becomes 0
+#pragma unroll
+    for (int j = 1; j < kW; ++j) madc_lo_cc(t[j], mq, c_qw[j]);
+    addc_zero(t[kW]);
+    mad_hi_cc(t[0], mq, c_qw[0], t[1]);  // word j - 1 <- word j: the shift
+#pragma unroll
+    for (int j = 1; j < kW - 1; ++j) madc_hi_cc(t[j], mq, c_qw[j], t[j + 1]);
+    madc_hi(t[kW - 1], mq, c_qw[kW - 1], t[kW]);
+    t[kW] = 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kW; ++k) o.w[k] = t[k];  // t[12] == 0: t < 2q
+}
+
+// d = a - b over 12 words; returns the borrow out (1 when a < b)
+__device__ __forceinline__ u32 sub_words(u32 (&d)[kW], const u32 (&a)[kW], const u32 (&b)[kW]) {
+  u32 borrow = 0;
+#pragma unroll
+  for (int j = 0; j < kW; ++j) {
+    const u64 p = static_cast<u64>(a[j]) - b[j] - borrow;
+    d[j] = static_cast<u32>(p);
+    borrow = static_cast<u32>(p >> 32) & 1u;
+  }
+  return borrow;
+}
+
+// o = a + b, then - 2q unless that borrows: a, b < 2q -> o < 2q.  The sum
+// is below 4q < 2^384, so it carries nothing out of 12 words.
+__device__ __forceinline__ void addw(Fw& o, const Fw& a, const Fw& b) {
+  u32 s[kW], d[kW];
+  u32 c = 0;
+#pragma unroll
+  for (int j = 0; j < kW; ++j) {
+    const u64 p = static_cast<u64>(a.w[j]) + b.w[j] + c;
+    s[j] = static_cast<u32>(p);
+    c = static_cast<u32>(p >> 32);
+  }
+  const u32 borrow = sub_words(d, s, c_2qw);
+#pragma unroll
+  for (int j = 0; j < kW; ++j) o.w[j] = borrow ? s[j] : d[j];
+}
+
+// o = a - b, then + 2q if that borrowed: a, b < 2q -> o < 2q
+__device__ __forceinline__ void subw(Fw& o, const Fw& a, const Fw& b) {
+  u32 d[kW];
+  const u32 borrow = sub_words(d, a.w, b.w);
+  const u32 mask = 0u - borrow;
+  u32 c = 0;
+#pragma unroll
+  for (int j = 0; j < kW; ++j) {
+    const u64 p = static_cast<u64>(d[j]) + (c_2qw[j] & mask) + c;
+    o.w[j] = static_cast<u32>(p);
+    c = static_cast<u32>(p >> 32);
+  }
+}
+
+// o = 2 a, `times` times
+__device__ __forceinline__ void dblw(Fw& o, const Fw& a, int times = 1) {
+  addw(o, a, a);
+#pragma unroll
+  for (int r = 1; r < times; ++r) addw(o, o, o);
+}
+
+// a < 2q -> a mod q in [0, q)
+__device__ __forceinline__ void reduce(Fw& o, const Fw& a) {
+  u32 d[kW];
+  const u32 borrow = sub_words(d, a.w, c_qw);
+#pragma unroll
+  for (int j = 0; j < kW; ++j) o.w[j] = borrow ? a.w[j] : d[j];
+}
+
+// a == b mod q, for a, b < 2q
+__device__ __forceinline__ bool eqw(const Fw& a, const Fw& b) {
+  Fw ra, rb;
+  reduce(ra, a);
+  reduce(rb, b);
+  u32 diff = 0;
+#pragma unroll
+  for (int j = 0; j < kW; ++j) diff |= ra.w[j] ^ rb.w[j];
+  return diff == 0;
+}
+
+// Entry: the 35 relaxed limbs of point i (value v = x 2^408 mod q, signed,
+// |v| < 2^23 q) -> the words of v 2^-24 mod q = x 2^384 mod q, in [0, 2q).
+// 1. one sequential carry pass makes limbs 0..33 digits in [0, 2^12) and
+//    leaves the sign in the top, and the digits and the top's low 8 bits
+//    are the two's-complement words of v mod 2^416 (|v| < 2^415);
+// 2. s = v + m0 q with m0 = v q' mod 2^24 is a multiple of 2^24 and
+//    |s| < 2^23 q + 2^24 q, so u = s / 2^24 (an arithmetic shift) has
+//    |u| < 1.5 q;
+// 3. u < 0 takes + 2q: u lands in [0, 2q).
+__device__ __forceinline__ void from_limbs(Fw& o, const int* __restrict__ src, size_t i,
+                                           size_t m) {
+  u32 v[kW + 1];
+#pragma unroll
+  for (int k = 0; k <= kW; ++k) v[k] = 0;
+  int carry = 0;
+#pragma unroll
+  for (int l = 0; l < kNsig; ++l) {
+    const int t = wadd(src[l * m + i], carry);
+    const u32 d = static_cast<u32>(t) & kMask;
+    carry = asr(t, kLimb);
+    const int bit = kLimb * l, word = bit >> 5, off = bit & 31;
+    v[word] |= d << off;
+    if (off > 32 - kLimb) v[word + 1] |= d >> (32 - off);
+  }
+  const int top = wadd(src[kNsig * m + i], carry);  // bits 408.. (the sign)
+  v[kW] |= static_cast<u32>(top) << 24;
+  const u32 m0 = (v[0] * kQInv) & kLow24;
+  u32 c = 0;
+#pragma unroll
+  for (int j = 0; j < kW; ++j) {
+    const u64 p = static_cast<u64>(m0) * c_qw[j] + v[j] + c;
+    v[j] = static_cast<u32>(p);
+    c = static_cast<u32>(p >> 32);
+  }
+  v[kW] += c;  // mod 2^32: the 416-bit two's complement of s
+  const u32 mask = 0u - (v[kW] >> 31);  // all ones when s < 0
+#pragma unroll
+  for (int j = 0; j < kW; ++j) v[j] = (v[j] >> 24) | (v[j + 1] << 8);  // u mod 2^384
+  c = 0;
+#pragma unroll
+  for (int j = 0; j < kW; ++j) {
+    const u64 p = static_cast<u64>(v[j]) + (c_2qw[j] & mask) + c;
+    o.w[j] = static_cast<u32>(p);
+    c = static_cast<u32>(p >> 32);
+  }
+}
+
+// Exit: a < 2q in the R' domain -> a 2^24 mod q in [0, q), written as 35
+// canonical 12-bit limbs of point i (limbs 32..34 are 0: q < 2^381).
+__device__ __forceinline__ void to_limbs(int* __restrict__ dst, const Fw& a, size_t i,
+                                         size_t m) {
+  Fw x;
+#pragma unroll
+  for (int j = 0; j < kW; ++j) x.w[j] = c_exitw[j];
+  mont(x, a, x);
+  reduce(x, x);
+#pragma unroll
+  for (int l = 0; l < kNl; ++l) {
+    const int bit = kLimb * l, word = bit >> 5, off = bit & 31;
+    u32 d = 0;
+    if (word < kW) {
+      d = x.w[word] >> off;
+      if (off > 32 - kLimb && word + 1 < kW) d |= x.w[word + 1] << (32 - off);
+    }
+    dst[l * m + i] = static_cast<int>(d & kMask);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4, K6: 35 relaxed limbs, R = 2^408 (the arithmetic of ops/fq_mont.py)
+// ---------------------------------------------------------------------------
 
 // One masked shift-add round over L columns: t_k <- (t_k & mask) +
 // (t_{k-1} >> 12); the top column keeps its full value plus the incoming
@@ -262,65 +529,61 @@ mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __res
   store(out, x, i, m);
 }
 
+// ---------------------------------------------------------------------------
+// K5: the complete Jacobian add on words
+// ---------------------------------------------------------------------------
+
 // dbl-2007-bl on (X, Y, Z): the tangent path of tpu_msm.point_double
-__device__ void point_double(int* X3, int* Y3, int* Z3, const int* X, const int* Y,
-                             const int* Z, bool z_is_one) {
-  int A[kNl], B[kNl], C[kNl], t[kNl], D[kNl], E[kNl];
-  mont_mul(A, X, X);
-  mont_mul(B, Y, Y);
-  mont_mul(C, B, B);
-  add_mod(t, X, B);
-  mont_mul(t, t, t);
-  sub_mod(t, t, A);
-  sub_mod(t, t, C);
-  dbl(D, t);
-  dbl(E, A);
-  add_mod(E, E, A);
-  mont_mul(t, E, E);  // F
-  dbl(B, D);
-  sub_mod(X3, t, B);  // Xd = F - 2D
-  sub_mod(t, D, X3);
-  mont_mul(t, E, t);
-  dbl(B, C, 3);
-  sub_mod(Y3, t, B);  // Yd = E (D - Xd) - 8C
-  if (z_is_one) {
-    dbl(Z3, Y);  // Zd = 2 Y (Z = one, the affine kernel)
-  } else {
-    mont_mul(t, Y, Z);
-    dbl(Z3, t);  // Zd = 2 Y Z
-  }
+__device__ __forceinline__ void point_double_w(Fw& X3, Fw& Y3, Fw& Z3, const Fw& X,
+                                               const Fw& Y, const Fw& Z) {
+  Fw A, B, C, t, D, E;
+  mont(A, X, X);
+  mont(B, Y, Y);
+  mont(C, B, B);
+  addw(t, X, B);
+  mont(t, t, t);
+  subw(t, t, A);
+  subw(t, t, C);
+  dblw(D, t);
+  dblw(E, A);
+  addw(E, E, A);
+  mont(t, E, E);  // F
+  dblw(B, D);
+  subw(X3, t, B);  // Xd = F - 2D
+  subw(t, D, X3);
+  mont(t, E, t);
+  dblw(B, C, 3);
+  subw(Y3, t, B);  // Yd = E (D - Xd) - 8C
+  mont(t, Y, Z);
+  dblw(Z3, t);  // Zd = 2 Y Z
 }
 
 // the chord path of tpu_msm.point_add from U1, U2, S1, S2 and ZZ = Z1 Z2
-// (or ZZ == nullptr for the affine kernel, where Z3 = 2 H)
-__device__ void point_chord(int* X3, int* Y3, int* Z3, const int* U1, const int* U2,
-                            const int* S1, const int* S2, const int* ZZ) {
-  int H[kNl], I[kNl], J[kNl], rr[kNl], V[kNl], t[kNl];
-  sub_mod(H, U2, U1);
-  dbl(t, H);
-  mont_mul(I, t, t);
-  mont_mul(J, H, I);
-  sub_mod(t, S2, S1);
-  dbl(rr, t);
-  mont_mul(V, U1, I);
-  mont_mul(t, rr, rr);
-  sub_mod(t, t, J);
-  dbl(X3, V);
-  sub_mod(X3, t, X3);  // X3 = rr^2 - J - 2V
-  sub_mod(t, V, X3);
-  mont_mul(t, rr, t);
-  mont_mul(V, S1, J);
-  dbl(V, V);
-  sub_mod(Y3, t, V);  // Y3 = rr (V - X3) - 2 S1 J
-  if (ZZ == nullptr) {
-    dbl(Z3, H);
-  } else {
-    mont_mul(t, ZZ, H);
-    dbl(Z3, t);  // Z3 = 2 Z1 Z2 H
-  }
+__device__ __forceinline__ void point_chord_w(Fw& X3, Fw& Y3, Fw& Z3, const Fw& U1,
+                                              const Fw& U2, const Fw& S1, const Fw& S2,
+                                              const Fw& ZZ) {
+  Fw H, I, J, rr, V, t;
+  subw(H, U2, U1);
+  dblw(t, H);
+  mont(I, t, t);
+  mont(J, H, I);
+  subw(t, S2, S1);
+  dblw(rr, t);
+  mont(V, U1, I);
+  mont(t, rr, rr);
+  subw(t, t, J);
+  dblw(X3, V);
+  subw(X3, t, X3);  // X3 = rr^2 - J - 2V
+  subw(t, V, X3);
+  mont(t, rr, t);
+  mont(V, S1, J);
+  dblw(V, V);
+  subw(Y3, t, V);  // Y3 = rr (V - X3) - 2 S1 J
+  mont(t, ZZ, H);
+  dblw(Z3, t);  // Z3 = 2 Z1 Z2 H
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 point_add_kernel(const int* __restrict__ x1, const int* __restrict__ y1,
                  const int* __restrict__ z1, const bool* __restrict__ i1,
                  const int* __restrict__ x2, const int* __restrict__ y2,
@@ -343,35 +606,93 @@ point_add_kernel(const int* __restrict__ x1, const int* __restrict__ y1,
     i3[i] = inf1 && inf2;
     return;
   }
-  int X1[kNl], Y1[kNl], Z1[kNl], X2[kNl], Y2[kNl], Z2[kNl];
-  load(X1, x1, i, m);
-  load(Y1, y1, i, m);
-  load(Z1, z1, i, m);
-  load(X2, x2, i, m);
-  load(Y2, y2, i, m);
-  load(Z2, z2, i, m);
-  int Z1Z1[kNl], Z2Z2[kNl], U1[kNl], U2[kNl], S1[kNl], S2[kNl];
-  mont_mul(Z1Z1, Z1, Z1);
-  mont_mul(Z2Z2, Z2, Z2);
-  mont_mul(U1, X1, Z2Z2);
-  mont_mul(U2, X2, Z1Z1);
-  mont_mul(S1, Y1, Z2);
-  mont_mul(S1, S1, Z2Z2);
-  mont_mul(S2, Y2, Z1);
-  mont_mul(S2, S2, Z1Z1);
-  const bool same_x = eq_mod_q(U1, U2);
-  const bool same_y = eq_mod_q(S1, S2);
-  int X3[kNl], Y3[kNl], Z3[kNl];
-  if (same_x && same_y) {
-    point_double(X3, Y3, Z3, X1, Y1, Z1, false);
-  } else {
-    mont_mul(Z1Z1, Z1, Z2);  // Z1 Z2
-    point_chord(X3, Y3, Z3, U1, U2, S1, S2, Z1Z1);
+  // Z1 and Z2 die in ZZ = Z1 Z2 before the tests; the tangent path
+  // reloads the operand it needs
+  Fw ZZ, Zsq, U1, U2, S1, S2;
+  {
+    Fw Z1, Z2;
+    from_limbs(Z1, z1, i, m);
+    from_limbs(Z2, z2, i, m);
+    mont(Zsq, Z2, Z2);
+    from_limbs(U1, x1, i, m);
+    mont(U1, U1, Zsq);  // X1 Z2^2
+    from_limbs(S1, y1, i, m);
+    mont(S1, S1, Z2);
+    mont(S1, S1, Zsq);  // Y1 Z2^3
+    mont(Zsq, Z1, Z1);
+    from_limbs(U2, x2, i, m);
+    mont(U2, U2, Zsq);  // X2 Z1^2
+    from_limbs(S2, y2, i, m);
+    mont(S2, S2, Z1);
+    mont(S2, S2, Zsq);  // Y2 Z1^3
+    mont(ZZ, Z1, Z2);
   }
-  store(x3, X3, i, m);
-  store(y3, Y3, i, m);
-  store(z3, Z3, i, m);
+  const bool same_x = eqw(U1, U2);
+  const bool same_y = eqw(S1, S2);
+  Fw X3, Y3, Z3;
+  if (same_x && same_y) {
+    Fw X1, Y1, Z1;
+    from_limbs(X1, x1, i, m);
+    from_limbs(Y1, y1, i, m);
+    from_limbs(Z1, z1, i, m);
+    point_double_w(X3, Y3, Z3, X1, Y1, Z1);
+  } else {
+    point_chord_w(X3, Y3, Z3, U1, U2, S1, S2, ZZ);
+  }
+  to_limbs(x3, X3, i, m);
+  to_limbs(y3, Y3, i, m);
+  to_limbs(z3, Z3, i, m);
   i3[i] = same_x && !same_y;
+}
+
+// ---------------------------------------------------------------------------
+// K6: affine + affine on limbs
+// ---------------------------------------------------------------------------
+
+// dbl-2007-bl on (X, Y, Z = one): Zd = 2 Y
+__device__ void point_double_aff(int* X3, int* Y3, int* Z3, const int* X, const int* Y) {
+  int A[kNl], B[kNl], C[kNl], t[kNl], D[kNl], E[kNl];
+  mont_mul(A, X, X);
+  mont_mul(B, Y, Y);
+  mont_mul(C, B, B);
+  add_mod(t, X, B);
+  mont_mul(t, t, t);
+  sub_mod(t, t, A);
+  sub_mod(t, t, C);
+  dbl(D, t);
+  dbl(E, A);
+  add_mod(E, E, A);
+  mont_mul(t, E, E);  // F
+  dbl(B, D);
+  sub_mod(X3, t, B);  // Xd = F - 2D
+  sub_mod(t, D, X3);
+  mont_mul(t, E, t);
+  dbl(B, C, 3);
+  sub_mod(Y3, t, B);  // Yd = E (D - Xd) - 8C
+  dbl(Z3, Y);
+}
+
+// the chord path with Z1 = Z2 = one: U = X, S = Y, Z3 = 2 H
+__device__ void point_chord_aff(int* X3, int* Y3, int* Z3, const int* U1, const int* U2,
+                                const int* S1, const int* S2) {
+  int H[kNl], I[kNl], J[kNl], rr[kNl], V[kNl], t[kNl];
+  sub_mod(H, U2, U1);
+  dbl(t, H);
+  mont_mul(I, t, t);
+  mont_mul(J, H, I);
+  sub_mod(t, S2, S1);
+  dbl(rr, t);
+  mont_mul(V, U1, I);
+  mont_mul(t, rr, rr);
+  sub_mod(t, t, J);
+  dbl(X3, V);
+  sub_mod(X3, t, X3);  // X3 = rr^2 - J - 2V
+  sub_mod(t, V, X3);
+  mont_mul(t, rr, t);
+  mont_mul(V, S1, J);
+  dbl(V, V);
+  sub_mod(Y3, t, V);  // Y3 = rr (V - X3) - 2 S1 J
+  dbl(Z3, H);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -404,9 +725,9 @@ point_add_aff_kernel(const int* __restrict__ x1, const int* __restrict__ y1,
   const bool same_y = eq_mod_q(Y1, Y2);
   int X3[kNl], Y3[kNl], Z3[kNl];
   if (same_x && same_y) {
-    point_double(X3, Y3, Z3, X1, Y1, nullptr, true);
+    point_double_aff(X3, Y3, Z3, X1, Y1);
   } else {
-    point_chord(X3, Y3, Z3, X1, X2, Y1, Y2, nullptr);
+    point_chord_aff(X3, Y3, Z3, X1, X2, Y1, Y2);
   }
   store(x3, X3, i, m);
   store(y3, Y3, i, m);
@@ -414,14 +735,16 @@ point_add_aff_kernel(const int* __restrict__ x1, const int* __restrict__ y1,
   i3[i] = same_x && !same_y;
 }
 
-unsigned blocks_for(int m) { return static_cast<unsigned>((m + kThreads - 1) / kThreads); }
+unsigned blocks_for(int m, int threads) {
+  return static_cast<unsigned>((m + threads - 1) / threads);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Copies the constant tables (host pointers) into __constant__ memory of
-// the current device; returns the CUDA error code.
+// Copies the limb kernels' constant tables (host pointers) into
+// __constant__ memory of the current device; returns the CUDA error code.
 int fq_load_constants(const int* q, const int* mu, const float* carry_w, const float* alpha_w,
                       const int* crt_w, const int* crt_p, const float* crt_r, const int* one) {
   cudaError_t e = cudaSuccess;
@@ -439,7 +762,7 @@ int fq_load_constants(const int* q, const int* mu, const float* carry_w, const f
 // Each launcher runs on the given stream and returns cudaGetLastError().
 int mont_mul_launch(const int* a, const int* b, int* out, int m, int depth, void* stream) {
   if (m <= 0 || depth < 1) return static_cast<int>(cudaErrorInvalidValue);
-  mont_mul_kernel<<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  mont_mul_kernel<<<blocks_for(m, kThreads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a, b, out, m, depth);
   return static_cast<int>(cudaGetLastError());
 }
@@ -448,8 +771,9 @@ int point_add_launch(const int* x1, const int* y1, const int* z1, const bool* i1
                      const int* x2, const int* y2, const int* z2, const bool* i2, int* x3,
                      int* y3, int* z3, bool* i3, int m, void* stream) {
   if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  point_add_kernel<<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x1, y1, z1, i1, x2, y2, z2, i2, x3, y3, z3, i3, m);
+  point_add_kernel<<<blocks_for(m, kThreads), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(x1, y1, z1, i1, x2, y2, z2, i2, x3,
+                                                          y3, z3, i3, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -457,8 +781,9 @@ int point_add_aff_launch(const int* x1, const int* y1, const bool* i1, const int
                          const int* y2, const bool* i2, int* x3, int* y3, int* z3, bool* i3,
                          int m, void* stream) {
   if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  point_add_aff_kernel<<<blocks_for(m), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x1, y1, i1, x2, y2, i2, x3, y3, z3, i3, m);
+  point_add_aff_kernel<<<blocks_for(m, kThreads), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(x1, y1, i1, x2, y2, i2, x3, y3,
+                                                              z3, i3, m);
   return static_cast<int>(cudaGetLastError());
 }
 

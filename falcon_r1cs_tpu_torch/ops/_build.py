@@ -1,4 +1,4 @@
-"""Build, load and self-test the port's CUDA kernels.
+"""Build, load, self-test and launch the port's CUDA kernels.
 
 The counterpart of `falcon_r1cs_tpu/ops/pallas_support.py`.  The sources
 under `csrc/` are compiled with `nvcc` for sm_90a, one compiler process
@@ -9,8 +9,19 @@ sources and the flags.  The library is loaded with ctypes.  Right after
 loading, the x + 1 kernel (`add_one`, the port of the Pallas capability
 probe) runs once and the load raises if its result is wrong.
 
-This is not a probe that picks a fallback: a failed build, load or
-self-test raises, and nothing here runs on a machine without a CUDA card.
+Every kernel launch of the port goes through `launch(name, device,
+*args)`, one path for all wrappers.  Its form, the fastest of those timed
+on the card (chip_smoke.py `launch_path_costs`, PERF.md section 6): each
+C entry point is bound once, when the library loads, and published
+(`_FN`) once the self-test has passed; it is called with the raw handle
+of the current stream from `torch._C._cuda_getCurrentRawStream` (no
+`torch.cuda.Stream` object); a device context is entered only when the
+tensors' device is not the current one; a non-zero return raises.  Nothing is cached per stream,
+so a caller's `torch.cuda.stream(...)` is always honoured.
+
+This is not a probe that picks a fallback: a failed build, load,
+self-test or launch raises, and nothing here runs on a machine without a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -120,31 +131,64 @@ def check_launch(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
-def _launch_add_one(lib: ctypes.CDLL, x: torch.Tensor) -> torch.Tensor:
-    out = torch.empty_like(x)
-    rc = lib.add_one_launch(
-        x.data_ptr(), out.data_ptr(), x.numel(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    check_launch(rc, "add_one_launch")
-    add_one.launches += 1
-    return out
+# the library's C entry points, published by `library()` once its
+# self-test has passed
+_FN: dict = {}
+# torch's current device and raw current stream (a CPU-only build of torch
+# has neither, and launches nothing)
+_get_device = getattr(torch._C, "_cuda_getDevice", None)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C launcher `name` with `args` (ints: pointers from
+    `data_ptr()`, sizes) and the raw handle of the current stream of
+    `device` (a CUDA device with its index); raise on a CUDA error."""
+    fn = _FN.get(name)
+    if fn is None:
+        library()
+        fn = _FN[name]
+    index = device.index
+    if index == _get_device():
+        rc = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, _raw_stream(index))
+    if rc != 0:
+        check_launch(rc, name)
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The built kernel library, loaded and self-tested once per process."""
+    """The built kernel library, loaded, bound and self-tested once per
+    process.  Its entry points reach `_FN` only after the self-test
+    passed, so a library that failed it is never launched, and the next
+    launch tries (and raises) again."""
     so, _, _ = build()
     lib = ctypes.CDLL(str(so))
+    fns = {}
     for name, argtypes in _ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        fns[name] = fn
+    _self_test(fns["add_one_launch"])
+    _FN.update(fns)
+    return lib
+
+
+def _self_test(add_one_launch) -> None:
+    """x + 1 on (8, 128) through the freshly bound entry point, on the
+    current device; K7's one launch a process, counted by `add_one`."""
     x = torch.arange(8 * 128, dtype=torch.int32, device="cuda").reshape(8, 128)
-    out = _launch_add_one(lib, x)
+    out = torch.empty_like(x)
+    check_launch(
+        add_one_launch(x.data_ptr(), out.data_ptr(), x.numel(), _raw_stream(_get_device())),
+        "add_one_launch",
+    )
+    add_one.launches += 1
     if not torch.equal(out, x + 1):
         raise RuntimeError("kernel library self-test (x + 1) failed")
-    return lib
 
 
 def add_one(x: torch.Tensor) -> torch.Tensor:
@@ -156,9 +200,10 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
         return add_one.plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"add_one: unsupported device {x.device}")
-    lib = library()
-    with torch.cuda.device(x.device):
-        return _launch_add_one(lib, x)
+    out = torch.empty_like(x)
+    launch("add_one_launch", x.device, x.data_ptr(), out.data_ptr(), x.numel())
+    add_one.launches += 1
+    return out
 
 
 add_one.launches = 0

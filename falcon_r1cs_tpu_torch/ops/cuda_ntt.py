@@ -134,16 +134,13 @@ def ntt_with_hints_cuda(x, params: FalconParams):
     b = torch.empty((batch, n), dtype=torch.int32, device=x.device)
     if batch == 0:
         return t, b
-    lib = _build.library()
     tab = _tables(n, x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.ntt_hints_launch(
-            x.data_ptr(), tab["tw"].data_ptr(), tab["bounds"].data_ptr(),
-            tab["act"].data_ptr(), t.data_ptr(), b.data_ptr(),
-            batch, params.log_n, _INV_Q_F32,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check_launch(rc, "ntt_hints_launch")
+    _build.launch(
+        "ntt_hints_launch", x.device,
+        x.data_ptr(), tab["tw"].data_ptr(), tab["bounds"].data_ptr(),
+        tab["act"].data_ptr(), t.data_ptr(), b.data_ptr(),
+        batch, params.log_n, _INV_Q_F32,
+    )
     ntt_with_hints_cuda.launches += 1
     return t, b
 
@@ -163,19 +160,16 @@ def intt_ntt_hints_cuda(w, params: FalconParams):
     v = torch.empty((batch, n), dtype=torch.int32, device=w.device)
     if batch == 0:
         return t, b, v
-    lib = _build.library()
     tab = _tables(n, w.device)
     n_inv_mont = (pow(n, Q - 2, Q) << 16) % Q
-    with torch.cuda.device(w.device):
-        rc = lib.intt_ntt_hints_launch(
-            w.data_ptr(), tab["tw"].data_ptr(), tab["itw"].data_ptr(),
-            tab["bounds"].data_ptr(), tab["act"].data_ptr(),
-            t.data_ptr(), b.data_ptr(), v.data_ptr(),
-            batch, params.log_n, _INV_Q_F32,
-            _QINV16_LO, _QINV16_HI, n_inv_mont,
-            torch.cuda.current_stream(w.device).cuda_stream,
-        )
-    _build.check_launch(rc, "intt_ntt_hints_launch")
+    _build.launch(
+        "intt_ntt_hints_launch", w.device,
+        w.data_ptr(), tab["tw"].data_ptr(), tab["itw"].data_ptr(),
+        tab["bounds"].data_ptr(), tab["act"].data_ptr(),
+        t.data_ptr(), b.data_ptr(), v.data_ptr(),
+        batch, params.log_n, _INV_Q_F32,
+        _QINV16_LO, _QINV16_HI, n_inv_mont,
+    )
     intt_ntt_hints_cuda.launches += 1
     return t, b, v
 

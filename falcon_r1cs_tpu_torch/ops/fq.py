@@ -9,8 +9,14 @@ The counterpart of `falcon_r1cs_tpu/ops/pallas_fq.py` (and of the XLA
   of `_build_mul_cached`'s kernel): x <- mont_mul(x, b), depth times;
   plain version `fq_mont.mont_mul_chain`.
 - `point_add_cuda(p1, p2)` launches `point_add_kernel` (K5, the port of
-  `_point_add_kernel`): the complete Jacobian add; plain version
-  `point_add`, the port of tpu_msm's `point_add`.
+  `_point_add_kernel`): the complete Jacobian add, computed on 12 words
+  of 32 bits in the R' = 2^384 domain; plain version `point_add`, the
+  port of tpu_msm's `point_add`, bit-equal to the JAX package.  K5 equals
+  it by VALUE, not limb for limb: each output coordinate is congruent mod
+  q to the plain version's (`fq_mont.canonical` of both agree) and comes
+  out canonical (limbs in [0, 2^12), limb 34 zero) where no operand is
+  infinite; the flags are exactly equal.  The same kind of equality
+  holds between K6 and K5.
 - `point_add_aff_cuda(p1, p2)` launches `point_add_aff_kernel` (K6, the
   port of `_point_add_aff_kernel`): affine + affine -> Jacobian; plain
   version `point_add_aff`, a transcription of that Pallas kernel (the JAX
@@ -18,9 +24,10 @@ The counterpart of `falcon_r1cs_tpu/ops/pallas_fq.py` (and of the XLA
 
 Points are limb-major: X, Y, Z (35, m) int32 relaxed Montgomery limbs and
 infinity flags (m,) bool; an affine point is (X, Y, inf).  Each wrapper
-takes its plain version for CPU tensors, launches its kernel for CUDA
-tensors and raises for anything else; there is no fallback from a CUDA
-tensor to the plain path.  `.launches` counts kernel launches.
+takes its plain version for CPU tensors, launches its kernel through
+`_build.launch` for CUDA tensors and raises for anything else; there is
+no fallback from a CUDA tensor to the plain path.  `.launches` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -98,6 +105,68 @@ def point_add(p1, p2):
     Y3 = _sel(inf1, Y2, _sel(inf2, Y1, Y3))
     Z3 = _sel(inf1, Z2, _sel(inf2, Z1, Z3))
     return (X3, Y3, Z3, is_inf3)
+
+
+def point_add_exact(p1, p2):
+    """K5's function on the host in exact integers: the formulas of
+    `point_add` over the values mod q (Montgomery domain, R = 2^408) with
+    exact equality tests; (X, Y, Z) as canonical limbs (35, m) on the
+    host, flags (m,).  Rows with an infinite operand take the other
+    operand as given, as `point_add` does.
+
+    The referee where the relaxed arithmetic is inexact: its equality test
+    (`fq_mont.is_zero_mod_q`, the JAX package's) steers by an f32 quotient
+    estimate that cancels when a difference is negative with its top limb
+    -1 over limbs near 2^12 (ROADMAP Queue 3), and then calls equal points
+    unequal."""
+    q = fq.Q381
+    rinv = pow(fq.R_MONT, -1, q)
+
+    def ints(c):
+        return [fq.limbs_to_int(col) % q for col in c.cpu().numpy().T]
+
+    def mul(a, b):
+        return a * b * rinv % q
+
+    cols1, cols2 = [ints(c) for c in p1[:3]], [ints(c) for c in p2[:3]]
+    inf1, inf2 = p1[3].cpu().numpy(), p2[3].cpu().numpy()
+    m = len(inf1)
+    given = [[c.cpu().numpy().T for c in p[:3]] for p in (p1, p2)]
+    out = [np.zeros((m, fq.NL), np.int32) for _ in range(3)]
+    flags = np.zeros(m, bool)
+    for i in range(m):
+        if inf1[i] or inf2[i]:
+            src = given[1] if inf1[i] else given[0]
+            for k in range(3):
+                out[k][i] = src[k][i]
+            flags[i] = inf1[i] and inf2[i]
+            continue
+        (X1, Y1, Z1), (X2, Y2, Z2) = [[c[i] for c in cols] for cols in (cols1, cols2)]
+        Z1Z1, Z2Z2 = mul(Z1, Z1), mul(Z2, Z2)
+        U1, U2 = mul(X1, Z2Z2), mul(X2, Z1Z1)
+        S1, S2 = mul(mul(Y1, Z2), Z2Z2), mul(mul(Y2, Z1), Z1Z1)
+        if U1 == U2 and S1 == S2:  # dbl-2007-bl
+            A, B = mul(X1, X1), mul(Y1, Y1)
+            C = mul(B, B)
+            D = 2 * (mul(X1 + B, X1 + B) - A - C)
+            E = 3 * A
+            X3 = mul(E, E) - 2 * D
+            Y3 = mul(E, D - X3) - 8 * C
+            Z3 = 2 * mul(Y1, Z1)
+        else:
+            H = U2 - U1
+            I = mul(2 * H, 2 * H)
+            J = mul(H, I)
+            rr = 2 * (S2 - S1)
+            V = mul(U1, I)
+            X3 = mul(rr, rr) - J - 2 * V
+            Y3 = mul(rr, V - X3) - 2 * mul(S1, J)
+            Z3 = 2 * mul(mul(Z1, Z2), H)
+        for k, v in enumerate((X3, Y3, Z3)):
+            out[k][i] = fq.int_to_limbs([v % q])[0]
+        flags[i] = U1 == U2 and S1 != S2
+    return tuple(torch.from_numpy(np.ascontiguousarray(o.T)) for o in out) + (
+        torch.from_numpy(flags),)
 
 
 def point_add_aff(p1, p2):
@@ -188,15 +257,12 @@ def _check_points(name: str, coords, flags, m: int, device):
 
 
 def _launch(name: str, *args):
-    """Run one C launcher on the current stream of the first tensor's
-    device; raise on a CUDA error."""
+    """Run one C launcher through `_build.launch` on the first tensor's
+    device, after the constant tables reach that device."""
     dev = args[0].device
-    lib = _build.library()
     _load_constants(dev.index)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        rc = getattr(lib, name)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, name)
+    _build.launch(name, dev, *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                               for a in args))
 
 
 def _is_cpu(*tensors) -> bool:
@@ -227,7 +293,9 @@ mont_mul_cuda.plain = fq.mont_mul_chain
 
 def point_add_cuda(p1, p2):
     """Complete Jacobian add of p1 = (X, Y, Z, inf) and p2: K5 on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors, the plain version on CPU tensors.  K5's X, Y, Z are congruent
+    mod q to the plain version's, canonical where no operand is infinite
+    (else the other operand as given), and its flags are equal."""
     if _is_cpu(*p1, *p2):
         return point_add_cuda.plain(p1, p2)
     if p1[0].dim() != 2:

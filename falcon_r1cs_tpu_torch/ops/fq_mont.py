@@ -4,8 +4,10 @@ The torch twin of `falcon_r1cs_tpu/ops/fq_mont.py`: the same relaxed
 signed 12-bit limbs, the same three products, semi-normalisation rounds,
 f32 carry estimate and spill fold, so every result is bit-equal to the JAX
 package's.  It is the plain version of the Montgomery kernel K4
-(`mont_mul_chain`) and the arithmetic under the point-add kernels K5 and
-K6 (ops/fq.py, csrc/fq_mont.cu).
+(`mont_mul_chain`) and the arithmetic under the plain versions of the
+point-add kernels K5 and K6 (ops/fq.py, csrc/fq_mont.cu).  `canonical`
+reduces relaxed limbs to the canonical limbs of value mod q: K5 computes
+on 32-bit words and is held against its plain version by value.
 
 Representation ("relaxed" limbs): value = sum l_i 2^(12 i) with signed
 limbs |l_i| <= 2^12 + 2 and a small top (headroom) limb; representatives
@@ -237,3 +239,46 @@ def is_zero_mod_q(t):
 def eq_mod_q(a, b):
     """Exact value equality mod q of two relaxed reps."""
     return is_zero_mod_q(sub_mod(a, b))
+
+
+def full_carry(z):
+    """Sequential carry over the limb axis: limbs 0..33 become digits in
+    [0, 2^12) and the top limb takes the rest, so its sign is the value's."""
+    rows = list(z.unbind(0))
+    for k in range(NL - 1):
+        rows[k + 1] = rows[k + 1] + (rows[k] >> LIMB)
+        rows[k] = rows[k] & MASK
+    return torch.stack(rows)
+
+
+def _to_range(z, q):
+    """Carried limbs of a value in (-2q, 3q) -> its residue in [0, q)."""
+    for _ in range(2):
+        z = full_carry(torch.where(z[-1:] < 0, z + q, z))
+    for _ in range(2):
+        d = full_carry(z - q)
+        z = torch.where(d[-1:] >= 0, d, z)
+    return z
+
+
+def canonical(t):
+    """Relaxed (35, ...) limbs -> the canonical limbs of value mod q: every
+    limb in [0, 2^12), limb 34 zero.  Exact for |value| <= 2^15 q.
+
+    The value's magnitude is carried to nonnegative digits first, so the
+    f32 quotient estimate (the weights of `is_zero_mod_q`) sums terms of
+    one sign (no cancellation: error < 2^-4 at 2^15 q) and leaves a
+    remainder in (-q, q); corrections bring it to [0, q), and a negative
+    value takes q minus its magnitude's residue.  The value comparison of
+    K5 with its plain version (ops/fq.py)."""
+    c = consts(t.device)
+    nd = t.dim()
+    q = _col(c["q"], nd)
+    z = full_carry(t)
+    neg = z[-1:] < 0
+    z = full_carry(torch.where(neg, -z, z))
+    alpha = torch.round(
+        (z.to(torch.float32) * _col(c["alpha_w"], nd)).sum(dim=0)
+    ).to(torch.int32)
+    z = _to_range(full_carry(z - alpha[None] * q), q)
+    return _to_range(torch.where(neg, full_carry(q - z), z), q)

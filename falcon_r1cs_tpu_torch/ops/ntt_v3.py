@@ -41,15 +41,12 @@ def ntt_semi_cuda(x, params: FalconParams):
     semi = torch.empty((SEMI_LIMBS, batch, n), dtype=torch.int32, device=x.device)
     if batch == 0:
         return semi
-    lib = _build.library()
     tab = _semi_tables(n, x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.ntt_semi_launch(
-            x.data_ptr(), tab["tw"].data_ptr(), tab["bounds"].data_ptr(),
-            semi.data_ptr(), batch, params.log_n,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check_launch(rc, "ntt_semi_launch")
+    _build.launch(
+        "ntt_semi_launch", x.device,
+        x.data_ptr(), tab["tw"].data_ptr(), tab["bounds"].data_ptr(),
+        semi.data_ptr(), batch, params.log_n,
+    )
     ntt_semi_cuda.launches += 1
     return semi
 

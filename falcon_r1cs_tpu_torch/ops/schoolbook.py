@@ -60,14 +60,11 @@ def schoolbook_prods_cuda(sig, pk, n: int):
     l = torch.empty((batch, n), dtype=torch.int32, device=sig.device)
     if batch == 0:
         return prods, h, l
-    lib = _build.library()
-    with torch.cuda.device(sig.device):
-        rc = lib.schoolbook_prods_launch(
-            sig.data_ptr(), pk.data_ptr(), prods.data_ptr(), h.data_ptr(),
-            l.data_ptr(), batch, n,
-            torch.cuda.current_stream(sig.device).cuda_stream,
-        )
-    _build.check_launch(rc, "schoolbook_prods_launch")
+    _build.launch(
+        "schoolbook_prods_launch", sig.device,
+        sig.data_ptr(), pk.data_ptr(), prods.data_ptr(), h.data_ptr(),
+        l.data_ptr(), batch, n,
+    )
     schoolbook_prods_cuda.launches += 1
     return prods, h, l
 

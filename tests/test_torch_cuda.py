@@ -14,7 +14,7 @@ import torch
 
 from falcon_r1cs_tpu_torch import FALCON_512, FALCON_1024, Q, ProverInputPipeline, RuntimeConfig
 from falcon_r1cs_tpu_torch.falcon import compress_signature, encode_public_key, make_instance
-from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, fq_mont, ntt_limb, ntt_v3
+from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, fq_check, fq_mont, ntt_limb, ntt_v3
 from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods_cuda
 from falcon_r1cs_tpu_torch.snark import gpu_msm, native_backend
 from falcon_r1cs_tpu_torch.witness import (
@@ -236,9 +236,18 @@ def _select_path_points(m, device):
     return (X, Y, inf1), (X2, Y2, inf2)
 
 
+def _assert_value_equal(got, want, p1, p2):
+    """K5's contract: each coordinate congruent mod q to the plain
+    version's, flags exactly equal; where the plain version's f32-steered
+    equality test errs, the exact host reference decides."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    assert fq_check.value_check(got, want, p1, p2)[0] == 0
+
+
 def test_fq_kernels_match_plain(cuda):
-    """K4 (depth 1 and 4), K5 and K6 against their plain versions, bit for
-    bit, on every select path."""
+    """K4 (depth 1 and 4) and K6 against their plain versions, bit for
+    bit, and K5 by value, on every select path."""
     m = 4096
     (X, Y, inf1), (X2, Y2, inf2) = _select_path_points(m, cuda)
     for depth in (1, 4):
@@ -250,17 +259,34 @@ def test_fq_kernels_match_plain(cuda):
     p1, p2 = (X, Y, one, inf1), (X2, Y2, one.clone(), inf2)
     got = fq.point_add_cuda(p1, p2)
     want = fq.point_add_cuda.plain(p1, p2)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    _assert_value_equal(got, want, p1, p2)
     assert got[3][64:96].all()
+    live = ~(inf1 | inf2)
+    for g in got[:3]:
+        assert torch.equal(fq_mont.canonical(g)[:, live], g[:, live])
     # Jacobian operands with Z != one: the outputs of the first add
-    got2 = fq.point_add_cuda(got, p1)
-    for g, w in zip(got2, fq.point_add_cuda.plain(want, p1)):
-        assert torch.equal(g, w)
+    _assert_value_equal(fq.point_add_cuda(got, p1), fq.point_add_cuda.plain(got, p1), got, p1)
     a1, a2 = (X, Y, inf1), (X2, Y2, inf2)
     got = fq.point_add_aff_cuda(a1, a2)
     for g, w in zip(got, fq.point_add_aff_cuda.plain(a1, a2)):
         assert g.dtype == w.dtype and torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["wide", "pos", "neg", "sub"])
+def test_point_add_kernel_far_from_canonical(cuda, kind):
+    """K5 == point_add by value on operands far from canonical: a K5 output
+    (Z != one) under another representative plus itself (the doubling
+    path) and plus the affine second operands (the chord)."""
+    m = 1024
+    (X, Y, inf1), (X2, Y2, inf2) = _select_path_points(m, cuda)
+    one = fq_mont.consts(cuda)["one"][:, None].expand(35, m).contiguous()
+    fed = fq.point_add_cuda((X, Y, one, inf1), (X2, Y2, one.clone(), inf2))
+    far = tuple(fq_check.far_reps(fq_mont.canonical(c), kind, 70 + i).contiguous()
+                for i, c in enumerate(fed[:3])) + (fed[3],)
+    for other in (fed, (X2, Y2, one, inf2)):
+        _assert_value_equal(fq.point_add_cuda(far, other), fq.point_add_cuda.plain(far, other),
+                            far, other)
     torch.cuda.synchronize()
 
 

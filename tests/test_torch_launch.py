@@ -1,0 +1,178 @@
+"""Every kernel wrapper of the port launches through the one helper
+`ops._build.launch`, on the CPU, with a mock kernel library.
+
+The mock replaces the bound C entry points (`_build._FN`) with recorders,
+and torch's current device and raw stream with stubs; the inputs are
+fake CUDA tensors (`FakeTensorMode`: metadata only, no card, data
+pointers 0).  So each wrapper runs its CUDA branch up to the C call: its
+checks, its output allocation, its launch through the helper and its
+launch count.  No JAX is imported.
+"""
+
+import warnings
+
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from falcon_r1cs_tpu_torch import FALCON_512
+from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, ntt_v3
+from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods_cuda
+
+STREAM = 0x5EED
+
+
+@pytest.fixture()
+def mock_library(monkeypatch):
+    """(calls, set_rc, contexts): the recorded C calls, a setter of the
+    mock's return code and the device contexts entered."""
+    calls, contexts, rc = [], [], [0]
+
+    class Entry:
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, *args):
+            calls.append((self.name, args))
+            return rc[0]
+
+    class Device:
+        def __init__(self, index):
+            self.index = index
+
+        def __enter__(self):
+            contexts.append(self.index)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(_build, "_FN", {n: Entry(n) for n in _build._ARGTYPES})
+    monkeypatch.setattr(_build, "_get_device", lambda: 0)
+    monkeypatch.setattr(_build, "_raw_stream", lambda index: STREAM + index)
+    monkeypatch.setattr(_build.torch.cuda, "device", Device)
+    monkeypatch.setattr(fq, "_load_constants", lambda index: None)
+    for cache in (cuda_ntt._tables, cuda_ntt._semi_tables):
+        cache.cache_clear()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # data_ptr() of a fake tensor
+        yield calls, lambda v: rc.__setitem__(0, v), contexts
+    for cache in (cuda_ntt._tables, cuda_ntt._semi_tables):
+        cache.cache_clear()
+
+
+def _wrapper_calls(dev):
+    """(wrapper, C entry, thunk) of every kernel wrapper on fake inputs."""
+    n, m = FALCON_512.n, 8
+    x = torch.zeros((2, n), dtype=torch.int32, device=dev)
+    limbs = torch.zeros((35, m), dtype=torch.int32, device=dev)
+    flags = torch.zeros(m, dtype=torch.bool, device=dev)
+    jac = (limbs, limbs, limbs, flags)
+    aff = (limbs, limbs, flags)
+    return [
+        (_build.add_one, "add_one_launch", lambda: _build.add_one(x)),
+        (cuda_ntt.ntt_with_hints_cuda, "ntt_hints_launch",
+         lambda: cuda_ntt.ntt_with_hints_cuda(x, FALCON_512)),
+        (cuda_ntt.intt_ntt_hints_cuda, "intt_ntt_hints_launch",
+         lambda: cuda_ntt.intt_ntt_hints_cuda(x, FALCON_512)),
+        (schoolbook_prods_cuda, "schoolbook_prods_launch",
+         lambda: schoolbook_prods_cuda(x, x, n)),
+        (ntt_v3.ntt_semi_cuda, "ntt_semi_launch", lambda: ntt_v3.ntt_semi_cuda(x, FALCON_512)),
+        (fq.mont_mul_cuda, "mont_mul_launch", lambda: fq.mont_mul_cuda(limbs, limbs, 3)),
+        (fq.point_add_cuda, "point_add_launch", lambda: fq.point_add_cuda(jac, jac)),
+        (fq.point_add_aff_cuda, "point_add_aff_launch",
+         lambda: fq.point_add_aff_cuda(aff, aff)),
+    ]
+
+
+def test_every_wrapper_launches_through_the_helper(mock_library):
+    """Each wrapper makes exactly one C call, through `_build.launch`, with
+    the raw current-stream handle last, no device context (the device is
+    current), and counts one launch."""
+    calls, _, contexts = mock_library
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        cases = _wrapper_calls(torch.device("cuda", 0))
+        for wrapper, entry, thunk in cases:
+            before = wrapper.launches
+            del calls[:]
+            thunk()
+            assert [c[0] for c in calls] == [entry], entry
+            args = calls[0][1]
+            assert len(args) == len(_build._ARGTYPES[entry]) and args[-1] == STREAM, entry
+            assert wrapper.launches == before + 1, entry
+    assert contexts == []
+    assert {e for _, e, _ in cases} == set(_build._ARGTYPES) - {"fq_load_constants"}
+
+
+def test_launch_enters_the_device_only_when_not_current(mock_library, monkeypatch):
+    """A tensor on another device than the current one takes a device
+    context and that device's stream."""
+    calls, _, contexts = mock_library
+    monkeypatch.setattr(_build, "_get_device", lambda: 1)
+    _build.launch("add_one_launch", torch.device("cuda", 0), 16, 32, 8)
+    assert contexts == [0] and calls == [("add_one_launch", (16, 32, 8, STREAM))]
+    monkeypatch.setattr(_build, "_get_device", lambda: 0)
+    _build.launch("add_one_launch", torch.device("cuda", 0), 16, 32, 8)
+    assert contexts == [0] and len(calls) == 2
+
+
+def test_launch_raises_on_every_nonzero_return(mock_library):
+    """A non-zero return of any entry point raises, and the wrapper counts
+    no launch."""
+    calls, set_rc, _ = mock_library
+    for rc in (1, 98, 700):
+        set_rc(rc)
+        with pytest.raises(RuntimeError, match=f"CUDA error {rc}"):
+            _build.launch("ntt_semi_launch", torch.device("cuda", 0), 0, 0, 0, 0, 1, 9)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        for wrapper, entry, thunk in _wrapper_calls(torch.device("cuda", 0)):
+            before = wrapper.launches
+            with pytest.raises(RuntimeError, match=entry):
+                thunk()
+            assert wrapper.launches == before, entry
+
+
+@pytest.mark.parametrize("passes", [False, True])
+def test_entry_points_published_only_after_self_test(monkeypatch, passes):
+    """A library whose self-test fails is never launched: every later
+    launch loads, self-tests and raises again.  One that passes publishes
+    its entry points, and the launch goes through them."""
+    calls, tested = [], []
+
+    class Entry:
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, *args):
+            calls.append((self.name, args))
+            return 0
+
+    class Lib:
+        def __getattr__(self, name):
+            return Entry(name)
+
+    def self_test(fn):
+        tested.append(fn.name)
+        if not passes:
+            raise RuntimeError("kernel library self-test (x + 1) failed")
+
+    monkeypatch.setattr(_build, "_FN", {})
+    monkeypatch.setattr(_build, "build", lambda: ("libkernels.so", 0.0, ""))
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: Lib())
+    monkeypatch.setattr(_build, "_self_test", self_test)
+    monkeypatch.setattr(_build, "_get_device", lambda: 0)
+    monkeypatch.setattr(_build, "_raw_stream", lambda index: STREAM + index)
+    _build.library.cache_clear()
+    try:
+        for attempt in (1, 2):
+            if passes:
+                _build.launch("add_one_launch", torch.device("cuda", 0), 16, 32, 8)
+                assert calls == [("add_one_launch", (16, 32, 8, STREAM))] * attempt
+                assert tested == ["add_one_launch"]
+                assert set(_build._FN) == set(_build._ARGTYPES)
+            else:
+                with pytest.raises(RuntimeError, match="self-test"):
+                    _build.launch("add_one_launch", torch.device("cuda", 0), 16, 32, 8)
+                assert calls == [] and _build._FN == {}
+                assert tested == ["add_one_launch"] * attempt
+    finally:
+        _build.library.cache_clear()
