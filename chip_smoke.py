@@ -21,9 +21,10 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
 It builds the kernels from csrc/, checks that each path launched its
 kernels (counts set to 0 just before the path, read just after), holds
 each kernel against its plain torch version on the card (all integer
-arithmetic: bit-exact, except K5, whose coordinates must agree mod q,
-compared in canonical form, and whose flags must be equal; also on rows
-far from canonical), and times both with CUDA events.  Each kernel's
+arithmetic: bit-exact, except the Fq kernels K4, K5 and K6, whose
+coordinates must agree mod q, compared in canonical form, and whose flags
+must be equal; K5 and K6 also on rows far from canonical), and times both
+with CUDA events.  Each kernel's
 bound is the larger of its bytes over the card's memory rate and its
 int32 multiply(-add)s over the card's int32 rate (H100_* below).  K7's
 launch path is costed step by step beside torch.add.
@@ -341,9 +342,10 @@ def k5_per_group(n_pad: int, window: int) -> int:
     return levels + (cl.bit_length() - 1) + (ch.bit_length() - 1) + scan(ch) + scan(cl)
 
 
-def device_kernel_ms(fn):
-    """(wall ms, device ms of all CUDA kernels, top kernels) of one fn() run
-    under torch.profiler; device time sums the CUDA rows only."""
+def device_kernel_ms(fn, keep=("point_add",)):
+    """(wall ms, device ms of all CUDA kernels, the top 8 kernels and any
+    other whose name holds one of `keep`) of one fn() run under
+    torch.profiler; device time sums the CUDA rows only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -361,7 +363,8 @@ def device_kernel_ms(fn):
 
     rows.sort(key=us, reverse=True)
     busy = sum(us(e) for e in rows) / 1e3
-    return wall, busy, [(e.key[:60], us(e) / 1e3, e.count) for e in rows[:8]]
+    shown = rows[:8] + [e for e in rows[8:] if any(k in e.key for k in keep)]
+    return wall, busy, [(e.key[:60], us(e) / 1e3, e.count) for e in shown]
 
 
 def groth16_path(port, dev, compiled, packed, instance, counted):
@@ -595,10 +598,10 @@ def select_path_rows(m, dev, seed=20261019):
 
 
 def fq_kernels_vs_plain(dev, launches, build_log):
-    """K4 (depth 1 and 4) and K6 against their plain versions at m = M_FQ
-    points with the doubling, P + (-P) and infinity rows of the JAX
-    package's tests, bit-equal; K5 there by value, and on rows far from
-    canonical; K5's ptxas line; times, bounds and records."""
+    """K4 (depth 1 and 4), K5 and K6 against their plain versions by value
+    at m = M_FQ points with the doubling, P + (-P) and infinity rows of
+    the JAX package's tests; K5 and K6 also on rows far from canonical;
+    their ptxas lines; times, bounds and records."""
     from falcon_r1cs_tpu_torch.ops import fq, fq_check, fq_mont
 
     m = M_FQ
@@ -607,56 +610,83 @@ def fq_kernels_vs_plain(dev, launches, build_log):
     limb_bytes = fq_mont.NL * 4 * m
 
     def compare(name, wrapper, args, plain_reps=3):
+        """By value (fq_check.value_check): the largest difference of the
+        canonical coordinates and the flags against the reference, the
+        exact referee deciding a point add's rows where the plain version
+        errs."""
         got = wrapper(*args)
         torch.cuda.synchronize()
         want = wrapper.plain(*args)
-        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-        referee_rows = None
-        if wrapper is fq.point_add_cuda:  # by value; the exact referee decides
-            err, referee_rows = fq_check.value_check(got, want, *args)
-            assert err == 0, f"{name} differs by value from its reference"
+        if wrapper is fq.mont_mul_cuda:
+            err, referee_rows = fq_check.value_check((got,), (want,))
+            assert torch.equal(fq_mont.canonical(got), got), f"{name}: not canonical"
         else:
-            err = max_abs_err(got, want)
-            assert err == 0, f"{name} differs from its plain version"
+            err, referee_rows = fq_check.value_check(got, want, *args)
+        assert err == 0, f"{name} differs by value from its reference"
         ms = cuda_ms(lambda: wrapper(*args))
         plain_ms = cuda_ms(lambda: wrapper.plain(*args), reps=plain_reps, inner=1, warmup=1)
-        return err, ms, plain_ms, referee_rows
+        return err, ms, kernel_device_ms(wrapper, args), plain_ms, referee_rows
+
+    def kernel_device_ms(wrapper, args, calls=10):
+        """The kernel alone: profiler device ms a launch.  The CUDA-event
+        time of back-to-back wrapper calls is the longer of this and the
+        wrapper's host cost a call."""
+        return device_kernel_ms(lambda: [wrapper(*args) for _ in range(calls)])[1] / calls
+
+    def ptxas(kernel):
+        if not build_log:
+            return {}
+        stats = ptxas_stats(build_log, kernel)
+        blocks, warps = resident(stats["registers"], 128)
+        log(f"{kernel} ptxas: {stats}; {blocks} blocks, {warps} warps an SM")
+        return stats
+
+    def far_rows(wrapper, fed, others):
+        """value_check on 4,096 rows of `fed` (coordinates made far from
+        canonical, each kind) against each of `others`: the rows the exact
+        referee decided, by kind."""
+        rows = 4096
+        head = tuple(c[..., :rows].contiguous() for c in fed)
+        referred = {}
+        for kind in ("wide", "pos", "neg", "sub"):
+            far = tuple(fq_check.far_reps(fq_mont.canonical(c), kind, 70 + i).contiguous()
+                        for i, c in enumerate(head[:-1])) + (head[-1],)
+            referred[kind] = 0
+            for other in others:
+                other = tuple(c[..., :rows].contiguous() for c in other)
+                far_err, n = fq_check.value_check(wrapper(far, other), wrapper.plain(far, other),
+                                                  far, other)
+                assert far_err == 0, f"{wrapper.__name__} differs by value on {kind} rows"
+                referred[kind] += n
+        return referred
 
     records = []
     for depth in (4, 1):
-        err, ms, plain_ms, _ = compare("mont_mul_kernel", fq.mont_mul_cuda, (X, Y2, depth))
-        log(f"mont_mul_kernel depth={depth} m={m}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bit-equal")
+        err, ms, dev_ms, plain_ms, referee_rows = compare("mont_mul_kernel", fq.mont_mul_cuda,
+                                                          (X, Y2, depth))
+        log(f"mont_mul_kernel depth={depth} m={m}: kernel {ms:.4f} ms (device {dev_ms:.4f} "
+            f"ms), plain {plain_ms:.4f} ms, equal by value (canonical mod q), canonical out")
+    wide = (X.repeat(1, 8), Y2.repeat(1, 8), 1)
+    log(f"mont_mul_kernel depth=1 m={8 * m} (the shape of the CRS conversion, X|Y at "
+        f"n_pad 2^18): kernel {cuda_ms(lambda: fq.mont_mul_cuda(*wide)):.4f} ms (device "
+        f"{kernel_device_ms(fq.mont_mul_cuda, wide):.4f} ms)")
     records.append(record(
         "mont_mul_kernel", "falcon_r1cs_tpu_torch/csrc/fq_mont.cu",
         "falcon_r1cs_tpu/ops/pallas_fq.py:280", launches["mont_mul_kernel"], err, ms,
-        plain_ms, 3 * limb_bytes, MONT_MUL_MULS * m,
+        plain_ms, 3 * limb_bytes, MONT_MUL_MULS * m, referee_rows=referee_rows,
+        device_ms=dev_ms, **ptxas("mont_mul_kernel"),
     ))
-    # K5 by value: max_abs_err is the largest limb difference of the
-    # canonical coordinates (and of the flags) against the reference
-    err, ms, plain_ms, referee_rows = compare("point_add_kernel", fq.point_add_cuda, (p1, p2))
-    log(f"point_add_kernel m={m}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, equal "
-        f"by value (canonical mod q), flags equal; {referee_rows} rows decided by the "
-        "exact host reference")
-    if build_log:
-        stats = ptxas_stats(build_log, "point_add_kernel")
-        blocks, warps = resident(stats["registers"], 128)
-        log(f"point_add_kernel ptxas: {stats}; {blocks} blocks, {warps} warps an SM")
+    err, ms, dev_ms, plain_ms, referee_rows = compare("point_add_kernel", fq.point_add_cuda,
+                                                      (p1, p2))
+    log(f"point_add_kernel m={m}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, equal by value (canonical mod q), flags equal; "
+        f"{referee_rows} rows decided by the exact host reference")
+    stats = ptxas("point_add_kernel")
+    # a K5 output with Z != one plus itself (the tangent) and plus an
+    # affine point (the chord)
     fed = fq.point_add_cuda(p1, p2)
-    rows = 4096
-    head = tuple(c[..., :rows].contiguous() for c in fed)
-    affine = tuple(c[..., :rows].contiguous() for c in p2)
-    referred = {}
-    for kind in ("wide", "pos", "neg", "sub"):
-        far = tuple(fq_check.far_reps(fq_mont.canonical(c), kind, 70 + i).contiguous()
-                    for i, c in enumerate(head[:3])) + (head[3],)
-        referred[kind] = 0
-        for other in (head, affine):  # the tangent (same point), the chord
-            far_err, n = fq_check.value_check(
-                fq.point_add_cuda(far, other), fq.point_add_cuda.plain(far, other), far, other)
-            assert far_err == 0, f"point_add_kernel differs by value on {kind} rows"
-            referred[kind] += n
-    log(f"point_add_kernel on {rows} rows far from canonical (limbs at +-(2^12 + 2), "
+    referred = far_rows(fq.point_add_cuda, fed, (fed, p2))
+    log("point_add_kernel on 4096 rows far from canonical (limbs at +-(2^12 + 2), "
         "values near +-2^13 q, sub_mod(0, .) negatives; a K5 output with Z != one "
         "plus itself and plus an affine point): equal by value, flags equal; rows "
         f"where the plain version erred, decided by the exact host reference: {referred}")
@@ -669,12 +699,21 @@ def fq_kernels_vs_plain(dev, launches, build_log):
         "point_add_kernel", "falcon_r1cs_tpu_torch/csrc/fq_mont.cu",
         "falcon_r1cs_tpu/ops/pallas_fq.py:325", launches["point_add_kernel"], err, ms,
         plain_ms, 9 * limb_bytes + 3 * m, muls,
-        referee_rows=referee_rows + sum(referred.values()),
+        referee_rows=referee_rows + sum(referred.values()), device_ms=dev_ms, **stats,
     ))
-    err, ms, plain_ms, _ = compare("point_add_aff_kernel", fq.point_add_aff_cuda,
-                                   ((X, Y, inf1), (X2, Y2, inf2)))
-    log(f"point_add_aff_kernel m={m}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        "bit-equal")
+    a1, a2 = (X, Y, inf1), (X2, Y2, inf2)
+    err, ms, dev_ms, plain_ms, referee_rows = compare("point_add_aff_kernel",
+                                                      fq.point_add_aff_cuda, (a1, a2))
+    log(f"point_add_aff_kernel m={m}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, equal by value (canonical mod q), flags equal; "
+        f"{referee_rows} rows decided by the exact host reference")
+    stats = ptxas("point_add_aff_kernel")
+    # X and Y far from canonical plus the same point (the tangent) and plus
+    # the other affine operand (the chord, every select path)
+    referred = far_rows(fq.point_add_aff_cuda, a1, (a1, a2))
+    log("point_add_aff_kernel on 4096 rows far from canonical (X and Y of each "
+        "kind, plus the same point and plus another affine point): equal by value, "
+        f"flags equal; rows decided by the exact host reference: {referred}")
     # Z1 = Z2 = one: 64 doubling rows (1 product, 5 squares), the rest but
     # the 64 infinity rows chord (4 products, 2 squares)
     records.append(record(
@@ -683,6 +722,7 @@ def fq_kernels_vs_plain(dev, launches, build_log):
         ms, plain_ms, 7 * limb_bytes + 3 * m,
         (m - 128) * (4 * MONT_MUL_MULS + 2 * MONT_SQR_MULS)
         + 64 * (MONT_MUL_MULS + 5 * MONT_SQR_MULS),
+        referee_rows=referee_rows + sum(referred.values()), device_ms=dev_ms, **stats,
     ))
     return records
 

@@ -14,18 +14,9 @@
 // Limb l of point i sits at l * m + i, so the threads of a warp load and
 // store neighbouring addresses.
 //
-// Two arithmetics live here.
-//
-// K4 and K6 compute exactly the arithmetic of ops/fq_mont.py: 35 limbs,
-// the 35x35 limb product, three semi-normalisation rounds, m = T mu mod R,
-// u = m q, the f32 carry estimate of the exact divide by R and the spill
-// fold; the equality tests by an f32 quotient estimate and 30 CRT
-// residues.  Every output limb is bit-equal to the plain version.  One
-// such product is 1225 + 595 + 1190 = 3010 int32 multiply-adds plus ~2,500
-// shifts, masks and adds: a design for a machine without carries.
-//
-// K5 works on 12 words of 32 bits with exact carries, in the Montgomery
-// domain R' = 2^384 (PTX add-with-carry chains where the TPU had none):
+// One arithmetic: 12 words of 32 bits with exact carries, in the
+// Montgomery domain R' = 2^384 (PTX add-with-carry chains where the TPU
+// had none):
 // - entry: each relaxed coordinate v (value x 2^408 mod q) becomes the
 //   words of v 2^-24 mod q = x 2^384 mod q, in [0, 2q), by one 24-bit
 //   Montgomery step (`from_limbs`), exact for |v| < 2^23 q (relaxed
@@ -34,51 +25,52 @@
 //   lazy in [0, 2q) (4q < 2^384), and add, subtract and double on words
 //   with one conditional correction by 2q; the chord, the dbl-2007-bl
 //   tangent and the infinity / P + (-P) selection are those of the plain
-//   version; the two equality tests compare words reduced to [0, q);
+//   versions; the equality tests compare words reduced to [0, q);
 // - exit: each output coordinate times 2^24 (a product by 2^408 mod q),
 //   reduced to [0, q) and written as canonical 12-bit limbs (limb 34 is
-//   0, every limb in [0, 2^12)), a valid relaxed representation, so K5
-//   and K6 outputs mix in the MSM's merge tree.  Rows with an infinite
-//   operand copy the other operand as given.
-// So K5 is no longer limb-equal to its plain version (ops/fq.py
-// point_add): its X, Y and Z are each congruent mod q to the plain
-// version's, and its flag is exactly equal.  One product is 2 x 144
-// 32x32->64 multiply-adds plus their carry adds.
+//   0, every limb in [0, 2^12)), a valid relaxed representation, so the
+//   kernels' outputs feed each other and the MSM's merge tree.  Rows with
+//   an infinite operand copy the other operand as given (K6: with Z the
+//   canonical limbs of one, 2^408 mod q).
+// So no kernel is limb-equal to its plain version (ops/fq_mont.py
+// mont_mul_chain, ops/fq.py point_add and point_add_aff, which keep the
+// TPU's 35-limb arithmetic bit-equal to the JAX package): each output
+// coordinate is congruent mod q to the plain version's and the flags are
+// exactly equal.  Where the plain versions' relaxed equality test calls
+// equal values unequal (ROADMAP Queue 3), the exact word compares here
+// are right.  One product is 2 x 144 32x32->64 multiply-adds plus their
+// carry adds.
 //
-// What bounds them on an H100: integer multiplies, not bytes.  K5 reads
-// about 850 bytes a point and writes 424; its 16 (chord) or 15 (tangent)
-// products are ~4,600 wide multiply-adds a point.
+// What bounds them on an H100, counted as chip_smoke.py counts (588 int32
+// multiplies a product, 456 a square; bytes in 35-limb form):
+// - K4 (mont_mul_kernel): bytes.  It reads 2 and writes 1 coordinate of
+//   35 int32 limbs a point (420 B) for depth + 1 products and two 24-bit
+//   entry steps;
+// - K5 (point_add_kernel): integer multiplies.  Its 16 (chord) or 15
+//   (tangent) products and 3 exits against 1,263 B a point;
+// - K6 (point_add_aff_kernel): bytes by the count (980 B a point), with
+//   the 6 products of either path and 3 exits close behind.
 //
 // What the design does about it:
-// - one thread per point; K5 keeps every value in registers (fixed-size
-//   word arrays indexed only by constants, every helper inlined), converts
-//   an input only when it is first needed, lets Z1 and Z2 die in Z1 Z2
-//   before the equality tests, keeps the product's word loop rolled and
-//   runs its carries as PTX carry chains (below); ptxas: 249 registers, no
-//   stack, no spill, 2 blocks of 128 threads an SM (chip_smoke.py prints
-//   them; smaller register caps spilled and more warps an SM did not pay,
-//   PERF.md section 6);
-// - K4 and K6 keep their 35-limb values in local arrays between calls of
-//   one non-inlined limb product, whose accumulator lives in registers
-//   (ptxas reports their stack; see PERF.md);
+// - one thread per point, every value in registers: fixed-size word
+//   arrays indexed only by constants, every helper inlined, an input
+//   converted only when it is first needed, the product's word loop kept
+//   rolled and its carries run as PTX carry chains (below); ptxas lines
+//   and SM residency of all three are printed by chip_smoke.py;
 // - K5 and K6 branch on the infinity flags and on the equality tests and
 //   compute only the path they select (the plain versions compute both
-//   and select);
-// - K5's constants (q's words, 2q's words, 2^408 mod q's words, q') are
-//   compile-time constants in this source; the limb kernels' tables (q,
-//   mu, the f32 weights, the CRT tables, one) are __constant__ memory
-//   loaded by fq_load_constants.
+//   and select); K6 drops every product by Z = one: U = X, S = Y, the
+//   tangent's Z is 2 Y and the chord's 2 H;
+// - the 35-limb form stays only at the kernels' edges, where it triples
+//   the bytes a coordinate moves against 12 words: keeping the points in
+//   words end to end is the next step (ROADMAP);
+// - every constant (q's words, 2q's words, 2^408 mod q's words, q') is a
+//   compile-time constant in this source; nothing is uploaded at run time.
 //
-// Exactness (signed overflow is undefined in CUDA C++): the limb kernels
-// keep all bounds of ops/fq_mont.py (products < 2^29.1, semi rounds bring
-// limbs to <= 2^12 + 2), and every integer multiply and add on limbs runs
-// through unsigned helpers that wrap mod 2^32 as the plain version's int32
-// tensors do.  asr() is the arithmetic shift right of a signed int (nvcc
-// shifts signed values arithmetically; C++20 defines it so).  Nothing
-// shifts a negative value left: the spill fold multiplies.  The f32
-// estimates use __fmul_rn / __fadd_rn (no FMA contraction, no fast math)
-// and rintf (round half to even, as torch.round and jnp.round).  The word
-// arithmetic of K5 is unsigned throughout.
+// The arithmetic is unsigned throughout, but for the entry's carry pass
+// over signed limbs, which wraps mod 2^32 through unsigned adds, and
+// asr(), the arithmetic shift right of a signed int (nvcc shifts signed
+// values arithmetically; C++20 defines it so).
 
 #include <cstdint>
 
@@ -90,37 +82,14 @@ constexpr int kLimb = 12;
 constexpr int kMask = (1 << kLimb) - 1;
 constexpr int kNsig = 34;
 constexpr int kNl = 35;
-constexpr int kProd = 2 * kNl + 1;  // 71
-constexpr int kZcols = kNl + 2;     // 37
-constexpr int kPrimes = 30;
 constexpr int kThreads = 128;
 
-__constant__ int c_q[kNl];
-__constant__ int c_mu[kNsig];
-__constant__ float c_carry_w[kNsig];
-__constant__ float c_alpha_w[kNl];
-__constant__ int c_crt_w[kZcols * kPrimes];  // [i][p]
-__constant__ int c_crt_p[kPrimes];
-__constant__ float c_crt_r[kPrimes];
-__constant__ int c_one[kNl];
-
-// two's-complement wrapping arithmetic (mod 2^32), as the plain version's
-// int32 tensors
+// two's-complement wrapping add (mod 2^32) of signed limbs
 __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }
-__device__ __forceinline__ int wsub(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
-}
-__device__ __forceinline__ int wmul(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
-}
 // arithmetic shift right of a signed value (jnp/torch `>>` on int32)
 __device__ __forceinline__ int asr(int x, int s) { return x >> s; }
-
-// ---------------------------------------------------------------------------
-// K5: 12 words of 32 bits, R' = 2^384
-// ---------------------------------------------------------------------------
 
 constexpr int kW = 12;
 using u32 = uint32_t;
@@ -136,7 +105,8 @@ __constant__ u32 c_2qw[kW] = {
     0xffff5556u, 0x73fdffffu, 0x62a7ffffu, 0x3d57fffdu, 0xed61ec48u, 0xce61a541u,
     0xe70a257eu, 0xc8ee9709u, 0x869759aeu, 0x96374f6cu, 0x72ffcd34u, 0x340223d4u};
 // 2^408 mod q: a product by it multiplies a value of the R' domain by 2^24
-// (w 2^408 2^-384), the exit from R' = 2^384 back to R = 2^408
+// (w 2^408 2^-384), the exit from R' = 2^384 back to R = 2^408; split into
+// 12-bit limbs, it is one of the R domain (fq_mont.ONE_MONT_LIMBS)
 __constant__ u32 c_exitw[kW] = {
     0x0ea898bau, 0xa1d20348u, 0x27c9288fu, 0x47c6b37cu, 0x0c52aee5u, 0xdddb86ecu,
     0x23d53606u, 0x7ec46095u, 0xb8dea933u, 0xbf713fa0u, 0x5b838ba6u, 0x18c3ccefu};
@@ -334,15 +304,9 @@ __device__ __forceinline__ void from_limbs(Fw& o, const int* __restrict__ src, s
   }
 }
 
-// Exit: a < 2q in the R' domain -> a 2^24 mod q in [0, q), written as 35
-// canonical 12-bit limbs of point i (limbs 32..34 are 0: q < 2^381).
-__device__ __forceinline__ void to_limbs(int* __restrict__ dst, const Fw& a, size_t i,
-                                         size_t m) {
-  Fw x;
-#pragma unroll
-  for (int j = 0; j < kW; ++j) x.w[j] = c_exitw[j];
-  mont(x, a, x);
-  reduce(x, x);
+// x < 2^384 as 35 12-bit limbs of point i (limbs 32..34 are 0)
+__device__ __forceinline__ void store_limbs(int* __restrict__ dst, const Fw& x, size_t i,
+                                            size_t m) {
 #pragma unroll
   for (int l = 0; l < kNl; ++l) {
     const int bit = kLimb * l, word = bit >> 5, off = bit & 31;
@@ -355,187 +319,49 @@ __device__ __forceinline__ void to_limbs(int* __restrict__ dst, const Fw& a, siz
   }
 }
 
+__device__ __forceinline__ void load_exitw(Fw& x) {
+#pragma unroll
+  for (int j = 0; j < kW; ++j) x.w[j] = c_exitw[j];
+}
+
+// Exit: a < 2q in the R' domain -> a 2^24 mod q in [0, q), written as 35
+// canonical 12-bit limbs of point i (limbs 32..34 are 0: q < 2^381).
+__device__ __forceinline__ void to_limbs(int* __restrict__ dst, const Fw& a, size_t i,
+                                         size_t m) {
+  Fw x;
+  load_exitw(x);
+  mont(x, a, x);
+  reduce(x, x);
+  store_limbs(dst, x, i, m);
+}
+
 // ---------------------------------------------------------------------------
-// K4, K6: 35 relaxed limbs, R = 2^408 (the arithmetic of ops/fq_mont.py)
+// K4: the Montgomery product chain
 // ---------------------------------------------------------------------------
-
-// One masked shift-add round over L columns: t_k <- (t_k & mask) +
-// (t_{k-1} >> 12); the top column keeps its full value plus the incoming
-// carry when `top` is set (fq_mont._semi_round), and is masked like the
-// others when the L columns are the prefix of a longer buffer.
-template <int L, bool top>
-__device__ __forceinline__ void semi_round(int (&t)[L]) {
-  int carry = asr(t[0], kLimb);
-  t[0] &= kMask;
-#pragma unroll
-  for (int k = 1; k < L; ++k) {
-    const int c = asr(t[k], kLimb);
-    t[k] = (top && k == L - 1) ? wadd(t[k], carry) : wadd(t[k] & kMask, carry);
-    carry = c;
-  }
-}
-
-template <int L, bool top>
-__device__ __forceinline__ void semi3(int (&t)[L]) {
-  semi_round<L, top>(t);
-  semi_round<L, top>(t);
-  semi_round<L, top>(t);
-}
-
-// o = a * b * R^-1 (lazy; fq_mont.mont_mul).  o may alias a or b: both are
-// read into registers first.
-__device__ __noinline__ void mont_mul(int* o, const int* a, const int* b) {
-  int ra[kNl], rb[kNl];
-#pragma unroll
-  for (int i = 0; i < kNl; ++i) {
-    ra[i] = a[i];
-    rb[i] = b[i];
-  }
-  // T = a b: 69 anti-diagonals + 2 spare columns, exact (< 2^29.1)
-  int t[kProd];
-#pragma unroll
-  for (int c = 0; c < kProd; ++c) {
-    int acc = 0;
-#pragma unroll
-    for (int i = (c > kNl - 1 ? c - (kNl - 1) : 0); i <= (c < kNl - 1 ? c : kNl - 1); ++i) {
-      acc = wadd(acc, wmul(ra[i], rb[c - i]));
-    }
-    t[c] = acc;
-  }
-  semi3<kProd, true>(t);
-  // m = semi(T[:34] mu)[:34]: columns < 34 of the full product only
-  int m[kNsig];
-#pragma unroll
-  for (int c = 0; c < kNsig; ++c) {
-    int acc = 0;
-#pragma unroll
-    for (int i = 0; i <= c; ++i) acc = wadd(acc, wmul(t[i], c_mu[c - i]));
-    m[c] = acc;
-  }
-  semi3<kNsig, false>(m);
-  // u = semi(m q), 71 columns
-  int u[kProd];
-#pragma unroll
-  for (int c = 0; c < kProd; ++c) {
-    int acc = 0;
-#pragma unroll
-    for (int i = (c > kNl - 1 ? c - (kNl - 1) : 0); i <= (c < kNsig - 1 ? c : kNsig - 1); ++i) {
-      acc = wadd(acc, wmul(m[i], c_q[c - i]));
-    }
-    u[c] = acc;
-  }
-  semi3<kProd, true>(u);
-  // s = semi_round(T + u), an exact multiple of R
-#pragma unroll
-  for (int c = 0; c < kProd; ++c) u[c] = wadd(t[c], u[c]);
-  semi_round<kProd, true>(u);
-  // k = value(s[:34]) / 2^408, an integer |k| <= 2
-  float est = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kNsig; ++i) {
-    est = __fadd_rn(est, __fmul_rn(static_cast<float>(u[i]), c_carry_w[i]));
-  }
-  const int k = static_cast<int>(rintf(est));
-  o[0] = wadd(u[kNsig], k);
-#pragma unroll
-  for (int i = 1; i < kNl - 1; ++i) o[i] = u[kNsig + i];
-  // fold the spill columns 69, 70 into the headroom limb (multiply, as
-  // they may be negative)
-  o[kNl - 1] = wadd(wadd(u[kNsig + kNl - 1], wmul(u[kNsig + kNl], 1 << kLimb)),
-                    wmul(u[kNsig + kNl + 1], 1 << (2 * kLimb)));
-}
-
-// o = semi_round(a + b) / semi_round(a - b) over 35 limbs (fq_mont.add_mod,
-// sub_mod); o may alias a or b
-__device__ __forceinline__ void add_mod(int* o, const int* a, const int* b) {
-  int t[kNl];
-#pragma unroll
-  for (int i = 0; i < kNl; ++i) t[i] = wadd(a[i], b[i]);
-  semi_round<kNl, true>(t);
-#pragma unroll
-  for (int i = 0; i < kNl; ++i) o[i] = t[i];
-}
-
-__device__ __forceinline__ void sub_mod(int* o, const int* a, const int* b) {
-  int t[kNl];
-#pragma unroll
-  for (int i = 0; i < kNl; ++i) t[i] = wsub(a[i], b[i]);
-  semi_round<kNl, true>(t);
-#pragma unroll
-  for (int i = 0; i < kNl; ++i) o[i] = t[i];
-}
-
-// o = a doubled `times` times by add_mod(a, a)
-__device__ __forceinline__ void dbl(int* o, const int* a, int times = 1) {
-  add_mod(o, a, a);
-  for (int r = 1; r < times; ++r) add_mod(o, o, o);
-}
-
-// (a - b == 0 mod q) for relaxed reps (fq_mont.eq_mod_q)
-__device__ __noinline__ bool eq_mod_q(const int* a, const int* b) {
-  int z[kZcols];
-  float est = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kNl; ++i) z[i] = wsub(a[i], b[i]);
-  z[kNl] = 0;
-  z[kNl + 1] = 0;
-  {
-    int d[kNl];
-#pragma unroll
-    for (int i = 0; i < kNl; ++i) d[i] = z[i];
-    semi_round<kNl, true>(d);  // sub_mod(a, b)
-#pragma unroll
-    for (int i = 0; i < kNl; ++i) {
-      z[i] = d[i];
-      est = __fadd_rn(est, __fmul_rn(static_cast<float>(d[i]), c_alpha_w[i]));
-    }
-  }
-  const int alpha = static_cast<int>(rintf(est));
-#pragma unroll
-  for (int i = 0; i < kNl; ++i) z[i] = wsub(z[i], wmul(alpha, c_q[i]));
-  semi3<kZcols, true>(z);
-  bool zero = true;
-#pragma unroll 6
-  for (int p = 0; p < kPrimes; ++p) {
-    int r = 0;
-#pragma unroll
-    for (int i = 0; i < kZcols; ++i) r = wadd(r, wmul(z[i], c_crt_w[i * kPrimes + p]));
-    const int kq =
-        wmul(static_cast<int>(rintf(__fmul_rn(static_cast<float>(r), c_crt_r[p]))), c_crt_p[p]);
-    zero = zero && (r == kq);
-  }
-  return zero;
-}
-
-__device__ __forceinline__ void load(int* v, const int* __restrict__ src, size_t i, size_t m) {
-#pragma unroll
-  for (int l = 0; l < kNl; ++l) v[l] = src[l * m + i];
-}
-
-__device__ __forceinline__ void store(int* __restrict__ dst, const int* v, size_t i, size_t m) {
-#pragma unroll
-  for (int l = 0; l < kNl; ++l) dst[l * m + i] = v[l];
-}
 
 __global__ void __launch_bounds__(kThreads)
 mont_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, int* __restrict__ out,
                 int m, int depth) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<size_t>(m)) return;
-  int x[kNl], y[kNl];
-  load(x, a, i, m);
-  load(y, b, i, m);
-  for (int d = 0; d < depth; ++d) mont_mul(x, x, y);
-  store(out, x, i, m);
+  // limbs of value v and the entry's words v 2^-24 stand for one field
+  // element (v 2^-408 = v 2^-24 2^-384), mont multiplies elements and the
+  // exit keeps the element: in value, the limb chain's a b^depth
+  // 2^(-408 depth) mod q
+  Fw x, y;
+  from_limbs(x, a, i, m);
+  from_limbs(y, b, i, m);
+  for (int d = 0; d < depth; ++d) mont(x, x, y);
+  to_limbs(out, x, i, m);
 }
 
 // ---------------------------------------------------------------------------
-// K5: the complete Jacobian add on words
+// K5, K6: the point adds
 // ---------------------------------------------------------------------------
 
-// dbl-2007-bl on (X, Y, Z): the tangent path of tpu_msm.point_double
-__device__ __forceinline__ void point_double_w(Fw& X3, Fw& Y3, Fw& Z3, const Fw& X,
-                                               const Fw& Y, const Fw& Z) {
+// dbl-2007-bl on (X, Y, Z): the tangent path of tpu_msm.point_double; Xd
+// and Yd do not depend on Z, the caller forms Zd = 2 Y Z
+__device__ __forceinline__ void point_double_w(Fw& X3, Fw& Y3, const Fw& X, const Fw& Y) {
   Fw A, B, C, t, D, E;
   mont(A, X, X);
   mont(B, Y, Y);
@@ -554,15 +380,13 @@ __device__ __forceinline__ void point_double_w(Fw& X3, Fw& Y3, Fw& Z3, const Fw&
   mont(t, E, t);
   dblw(B, C, 3);
   subw(Y3, t, B);  // Yd = E (D - Xd) - 8C
-  mont(t, Y, Z);
-  dblw(Z3, t);  // Zd = 2 Y Z
 }
 
-// the chord path of tpu_msm.point_add from U1, U2, S1, S2 and ZZ = Z1 Z2
-__device__ __forceinline__ void point_chord_w(Fw& X3, Fw& Y3, Fw& Z3, const Fw& U1,
-                                              const Fw& U2, const Fw& S1, const Fw& S2,
-                                              const Fw& ZZ) {
-  Fw H, I, J, rr, V, t;
+// the chord path of tpu_msm.point_add from U1, U2, S1, S2; H = U2 - U1
+// comes out for the caller's Z3 = 2 Z1 Z2 H
+__device__ __forceinline__ void point_chord_w(Fw& X3, Fw& Y3, Fw& H, const Fw& U1,
+                                              const Fw& U2, const Fw& S1, const Fw& S2) {
+  Fw I, J, rr, V, t;
   subw(H, U2, U1);
   dblw(t, H);
   mont(I, t, t);
@@ -579,8 +403,6 @@ __device__ __forceinline__ void point_chord_w(Fw& X3, Fw& Y3, Fw& Z3, const Fw& 
   mont(V, S1, J);
   dblw(V, V);
   subw(Y3, t, V);  // Y3 = rr (V - X3) - 2 S1 J
-  mont(t, ZZ, H);
-  dblw(Z3, t);  // Z3 = 2 Z1 Z2 H
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -635,9 +457,13 @@ point_add_kernel(const int* __restrict__ x1, const int* __restrict__ y1,
     from_limbs(X1, x1, i, m);
     from_limbs(Y1, y1, i, m);
     from_limbs(Z1, z1, i, m);
-    point_double_w(X3, Y3, Z3, X1, Y1, Z1);
+    point_double_w(X3, Y3, X1, Y1);
+    mont(Z3, Y1, Z1);
+    dblw(Z3, Z3);  // Zd = 2 Y Z
   } else {
-    point_chord_w(X3, Y3, Z3, U1, U2, S1, S2, ZZ);
+    point_chord_w(X3, Y3, Z3, U1, U2, S1, S2);
+    mont(Z3, ZZ, Z3);
+    dblw(Z3, Z3);  // Z3 = 2 Z1 Z2 H
   }
   to_limbs(x3, X3, i, m);
   to_limbs(y3, Y3, i, m);
@@ -645,56 +471,7 @@ point_add_kernel(const int* __restrict__ x1, const int* __restrict__ y1,
   i3[i] = same_x && !same_y;
 }
 
-// ---------------------------------------------------------------------------
-// K6: affine + affine on limbs
-// ---------------------------------------------------------------------------
-
-// dbl-2007-bl on (X, Y, Z = one): Zd = 2 Y
-__device__ void point_double_aff(int* X3, int* Y3, int* Z3, const int* X, const int* Y) {
-  int A[kNl], B[kNl], C[kNl], t[kNl], D[kNl], E[kNl];
-  mont_mul(A, X, X);
-  mont_mul(B, Y, Y);
-  mont_mul(C, B, B);
-  add_mod(t, X, B);
-  mont_mul(t, t, t);
-  sub_mod(t, t, A);
-  sub_mod(t, t, C);
-  dbl(D, t);
-  dbl(E, A);
-  add_mod(E, E, A);
-  mont_mul(t, E, E);  // F
-  dbl(B, D);
-  sub_mod(X3, t, B);  // Xd = F - 2D
-  sub_mod(t, D, X3);
-  mont_mul(t, E, t);
-  dbl(B, C, 3);
-  sub_mod(Y3, t, B);  // Yd = E (D - Xd) - 8C
-  dbl(Z3, Y);
-}
-
-// the chord path with Z1 = Z2 = one: U = X, S = Y, Z3 = 2 H
-__device__ void point_chord_aff(int* X3, int* Y3, int* Z3, const int* U1, const int* U2,
-                                const int* S1, const int* S2) {
-  int H[kNl], I[kNl], J[kNl], rr[kNl], V[kNl], t[kNl];
-  sub_mod(H, U2, U1);
-  dbl(t, H);
-  mont_mul(I, t, t);
-  mont_mul(J, H, I);
-  sub_mod(t, S2, S1);
-  dbl(rr, t);
-  mont_mul(V, U1, I);
-  mont_mul(t, rr, rr);
-  sub_mod(t, t, J);
-  dbl(X3, V);
-  sub_mod(X3, t, X3);  // X3 = rr^2 - J - 2V
-  sub_mod(t, V, X3);
-  mont_mul(t, rr, t);
-  mont_mul(V, S1, J);
-  dbl(V, V);
-  sub_mod(Y3, t, V);  // Y3 = rr (V - X3) - 2 S1 J
-  dbl(Z3, H);
-}
-
+// affine + affine: Z1 = Z2 = one, so U = X, S = Y, and no product by Z
 __global__ void __launch_bounds__(kThreads)
 point_add_aff_kernel(const int* __restrict__ x1, const int* __restrict__ y1,
                      const bool* __restrict__ i1, const int* __restrict__ x2,
@@ -704,34 +481,38 @@ point_add_aff_kernel(const int* __restrict__ x1, const int* __restrict__ y1,
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<size_t>(m)) return;
   const bool inf1 = i1[i], inf2 = i2[i];
-  if (inf1 || inf2) {  // the other operand with Z = one
+  if (inf1 || inf2) {  // the other operand as given, with Z = one
     const int* xs = inf1 ? x2 : x1;
     const int* ys = inf1 ? y2 : y1;
 #pragma unroll
     for (int l = 0; l < kNl; ++l) {
       x3[l * m + i] = xs[l * m + i];
       y3[l * m + i] = ys[l * m + i];
-      z3[l * m + i] = c_one[l];
     }
+    Fw one;
+    load_exitw(one);
+    store_limbs(z3, one, i, m);
     i3[i] = inf1 && inf2;
     return;
   }
-  int X1[kNl], Y1[kNl], X2[kNl], Y2[kNl];
-  load(X1, x1, i, m);
-  load(Y1, y1, i, m);
-  load(X2, x2, i, m);
-  load(Y2, y2, i, m);
-  const bool same_x = eq_mod_q(X1, X2);
-  const bool same_y = eq_mod_q(Y1, Y2);
-  int X3[kNl], Y3[kNl], Z3[kNl];
+  Fw X1, Y1, X2, Y2;
+  from_limbs(X1, x1, i, m);
+  from_limbs(X2, x2, i, m);
+  from_limbs(Y1, y1, i, m);
+  from_limbs(Y2, y2, i, m);
+  const bool same_x = eqw(X1, X2);
+  const bool same_y = eqw(Y1, Y2);
+  Fw X3, Y3, Z3;
   if (same_x && same_y) {
-    point_double_aff(X3, Y3, Z3, X1, Y1);
+    point_double_w(X3, Y3, X1, Y1);
+    dblw(Z3, Y1);  // Zd = 2 Y
   } else {
-    point_chord_aff(X3, Y3, Z3, X1, X2, Y1, Y2);
+    point_chord_w(X3, Y3, Z3, X1, X2, Y1, Y2);
+    dblw(Z3, Z3);  // Z3 = 2 H
   }
-  store(x3, X3, i, m);
-  store(y3, Y3, i, m);
-  store(z3, Z3, i, m);
+  to_limbs(x3, X3, i, m);
+  to_limbs(y3, Y3, i, m);
+  to_limbs(z3, Z3, i, m);
   i3[i] = same_x && !same_y;
 }
 
@@ -742,22 +523,6 @@ unsigned blocks_for(int m, int threads) {
 }  // namespace
 
 extern "C" {
-
-// Copies the limb kernels' constant tables (host pointers) into
-// __constant__ memory of the current device; returns the CUDA error code.
-int fq_load_constants(const int* q, const int* mu, const float* carry_w, const float* alpha_w,
-                      const int* crt_w, const int* crt_p, const float* crt_r, const int* one) {
-  cudaError_t e = cudaSuccess;
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_q, q, sizeof(c_q));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_mu, mu, sizeof(c_mu));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_carry_w, carry_w, sizeof(c_carry_w));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_alpha_w, alpha_w, sizeof(c_alpha_w));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_crt_w, crt_w, sizeof(c_crt_w));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_crt_p, crt_p, sizeof(c_crt_p));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_crt_r, crt_r, sizeof(c_crt_r));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_one, one, sizeof(c_one));
-  return static_cast<int>(e);
-}
 
 // Each launcher runs on the given stream and returns cudaGetLastError().
 int mont_mul_launch(const int* a, const int* b, int* out, int m, int depth, void* stream) {

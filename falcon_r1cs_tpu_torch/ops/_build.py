@@ -58,7 +58,6 @@ _ARGTYPES = {
     "ntt_semi_launch": [_P, _P, _P, _P, _I, _I, _P],
     "add_one_launch": [_P, _P, _I, _P],
     "schoolbook_prods_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "fq_load_constants": [_P] * 8,
     "mont_mul_launch": [_P, _P, _P, _I, _I, _P],
     "point_add_launch": [_P] * 12 + [_I, _P],
     "point_add_aff_launch": [_P] * 10 + [_I, _P],

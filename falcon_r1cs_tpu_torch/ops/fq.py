@@ -9,18 +9,22 @@ The counterpart of `falcon_r1cs_tpu/ops/pallas_fq.py` (and of the XLA
   of `_build_mul_cached`'s kernel): x <- mont_mul(x, b), depth times;
   plain version `fq_mont.mont_mul_chain`.
 - `point_add_cuda(p1, p2)` launches `point_add_kernel` (K5, the port of
-  `_point_add_kernel`): the complete Jacobian add, computed on 12 words
-  of 32 bits in the R' = 2^384 domain; plain version `point_add`, the
-  port of tpu_msm's `point_add`, bit-equal to the JAX package.  K5 equals
-  it by VALUE, not limb for limb: each output coordinate is congruent mod
-  q to the plain version's (`fq_mont.canonical` of both agree) and comes
-  out canonical (limbs in [0, 2^12), limb 34 zero) where no operand is
-  infinite; the flags are exactly equal.  The same kind of equality
-  holds between K6 and K5.
+  `_point_add_kernel`): the complete Jacobian add; plain version
+  `point_add`, the port of tpu_msm's `point_add`, bit-equal to the JAX
+  package.
 - `point_add_aff_cuda(p1, p2)` launches `point_add_aff_kernel` (K6, the
   port of `_point_add_aff_kernel`): affine + affine -> Jacobian; plain
   version `point_add_aff`, a transcription of that Pallas kernel (the JAX
   package has no XLA form of it).
+
+The three kernels compute on 12 words of 32 bits in the R' = 2^384
+domain and equal their plain versions by VALUE, not limb for limb: each
+output coordinate is congruent mod q to the plain version's
+(`fq_mont.canonical` of both agree) and comes out canonical (limbs in
+[0, 2^12), limb 34 zero), except on the rows of K5 and K6 with an
+infinite operand, which copy the other operand as given (K6 with Z the
+canonical limbs of one); the flags are exactly equal
+(`fq_check.value_check`).
 
 Points are limb-major: X, Y, Z (35, m) int32 relaxed Montgomery limbs and
 infinity flags (m,) bool; an affine point is (X, Y, inf).  Each wrapper
@@ -31,8 +35,6 @@ kernel launches.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -112,7 +114,8 @@ def point_add_exact(p1, p2):
     `point_add` over the values mod q (Montgomery domain, R = 2^408) with
     exact equality tests; (X, Y, Z) as canonical limbs (35, m) on the
     host, flags (m,).  Rows with an infinite operand take the other
-    operand as given, as `point_add` does.
+    operand as given, as `point_add` does.  With affine operands lifted to
+    Z = one (`fq_check.jacobian`) it is K6's function.
 
     The referee where the relaxed arithmetic is inexact: its equality test
     (`fq_mont.is_zero_mod_q`, the JAX package's) steers by an f32 quotient
@@ -221,21 +224,6 @@ def point_add_aff(p1, p2):
 # --------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _load_constants(device_index: int) -> None:
-    """Copy the constant tables into the kernels' __constant__ memory on
-    one device, once per process."""
-    lib = _build.library()
-    host = [
-        np.ascontiguousarray(a)
-        for a in (fq.Q_LIMBS, fq.MU_LIMBS, fq._CARRY_W, fq._ALPHA_W, fq._CRT_W,
-                  fq._CRT_PRIMES, fq._CRT_RECIP, fq.ONE_MONT_LIMBS)
-    ]
-    with torch.cuda.device(device_index):
-        rc = lib.fq_load_constants(*(a.ctypes.data for a in host))
-    _build.check_launch(rc, "fq_load_constants")
-
-
 def _check(name: str, t, shape, dtype, device):
     if t.device != device:
         raise ValueError(f"{name}: tensors on {t.device} and {device}")
@@ -258,11 +246,9 @@ def _check_points(name: str, coords, flags, m: int, device):
 
 def _launch(name: str, *args):
     """Run one C launcher through `_build.launch` on the first tensor's
-    device, after the constant tables reach that device."""
-    dev = args[0].device
-    _load_constants(dev.index)
-    _build.launch(name, dev, *(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                               for a in args))
+    device."""
+    _build.launch(name, args[0].device, *(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                                          for a in args))
 
 
 def _is_cpu(*tensors) -> bool:
@@ -271,7 +257,9 @@ def _is_cpu(*tensors) -> bool:
 
 def mont_mul_cuda(a, b, depth: int = 1):
     """x = mont_mul(a, b), then depth - 1 more x <- mont_mul(x, b), on
-    (35, m) int32: K4 on CUDA tensors, the plain version on CPU tensors."""
+    (35, m) int32: K4 on CUDA tensors, the plain version on CPU tensors.
+    K4 takes relaxed limbs of value |v| < 2^23 q (its entry's bound) and
+    returns the canonical limbs of the plain version's value mod q."""
     if depth < 1:
         raise ValueError(f"mont_mul_cuda: depth must be >= 1, got {depth}")
     if _is_cpu(a, b):
@@ -315,7 +303,10 @@ point_add_cuda.plain = point_add
 
 def point_add_aff_cuda(p1, p2):
     """Affine + affine -> Jacobian, p = (X, Y, inf): K6 on CUDA tensors,
-    the plain version on CPU tensors."""
+    the plain version on CPU tensors.  K6's X, Y, Z are congruent mod q to
+    the plain version's, canonical where no operand is infinite (else the
+    other operand's X, Y as given and Z the canonical limbs of one), and
+    its flags are equal."""
     if _is_cpu(*p1, *p2):
         return point_add_aff_cuda.plain(p1, p2)
     if p1[0].dim() != 2:

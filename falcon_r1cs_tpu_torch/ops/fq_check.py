@@ -1,6 +1,7 @@
-"""K5's value contract, checked on the card: operands far from canonical,
-and the row-by-row comparison of K5 (`point_add_kernel`, csrc/fq_mont.cu)
-with its plain version by value, with an exact host referee.
+"""The value contract of the Fq kernels K4, K5 and K6 (`csrc/fq_mont.cu`),
+checked on the card: operands far from canonical, and the row-by-row
+comparison of a kernel with its plain version by value, with an exact
+host referee for the point adds.
 
 Used by chip_smoke.py and tests/test_torch_cuda.py.
 """
@@ -33,27 +34,44 @@ def far_reps(c, kind: str, seed: int):
     return fqm.sub_mod(torch.zeros_like(c), fqm.full_carry(q - c))
 
 
-def value_check(got, want, p1, p2) -> tuple[int, int]:
-    """K5's contract, row by row: coordinates congruent mod q to the plain
-    version's, flags equal.  The reference is the plain version's output,
-    except on the rows where the two differ: there the exact host
-    reference `fq.point_add_exact` decides (the plain version's f32-steered
-    equality test can call equal points unequal).  Returns (the largest
-    absolute difference between `fq_mont.canonical` of K5's coordinates and
-    of the reference's, and between the flags as 0/1, over all rows; the
-    rows the exact reference decided)."""
-    ref = [fqm.canonical(w) for w in want[:3]] + [want[3].clone()]
-    canon = [fqm.canonical(g) for g in got[:3]] + [got[3]]
-    diff = canon[3] != ref[3]
-    for g, w in zip(canon[:3], ref[:3]):
-        diff |= (g != w).any(dim=0)
+def jacobian(p):
+    """An affine point (X, Y, inf) lifted to (X, Y, one, inf), Z the
+    canonical limbs of one; a Jacobian point (X, Y, Z, inf) as it is."""
+    if len(p) == 4:
+        return p
+    X, Y, inf = p
+    return (X, Y, fqm.consts(X.device)["one"][:, None].expand_as(X), inf)
+
+
+def value_check(got, want, p1=None, p2=None) -> tuple[int, int]:
+    """A kernel's value contract, row by row: each coordinate ((35, m)
+    int32 limbs) congruent mod q to the plain version's, each flag ((m,)
+    bool) equal.  got, want: tuples, (K4's product,) or a point add's
+    coordinates and flag.  The reference is the plain version's output,
+    except, for a point add of p1 and p2 (Jacobian, or affine and lifted
+    by `jacobian`), on the rows where the two differ: there the exact host
+    reference `fq.point_add_exact` decides (the plain version's
+    f32-steered equality test can call equal points unequal).  Returns
+    (the largest absolute difference between `fq_mont.canonical` of the
+    kernel's coordinates and of the reference's, and between the flags as
+    0/1, over all rows; the rows the exact reference decided)."""
+
+    def canon(t):
+        return t.clone() if t.dtype == torch.bool else fqm.canonical(t)
+
+    ref = [canon(w) for w in want]
+    mine = [canon(g) for g in got]
+    m = got[0].shape[-1]
+    diff = torch.zeros(m, dtype=torch.bool, device=got[0].device)
+    for g, w in zip(mine, ref):
+        diff |= (g != w).reshape(-1, m).any(dim=0)
     rows = torch.nonzero(diff).flatten()
-    if len(rows):
-        exact = fq.point_add_exact(tuple(c[..., rows] for c in p1),
-                                   tuple(c[..., rows] for c in p2))
-        for k in range(3):
-            ref[k][:, rows] = fqm.canonical(exact[k]).to(ref[k].device)
-        ref[3][rows] = exact[3].to(ref[3].device)
+    decided = 0
+    if p1 is not None and len(rows):
+        exact = fq.point_add_exact(*(tuple(c[..., rows] for c in jacobian(p)) for p in (p1, p2)))
+        for r, e in zip(ref, exact):
+            r[..., rows] = canon(e).to(r.device)
+        decided = len(rows)
     err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
-              for g, w in zip(canon, ref))
-    return err, len(rows)
+              for g, w in zip(mine, ref))
+    return err, decided

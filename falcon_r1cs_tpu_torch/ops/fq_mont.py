@@ -6,8 +6,9 @@ f32 carry estimate and spill fold, so every result is bit-equal to the JAX
 package's.  It is the plain version of the Montgomery kernel K4
 (`mont_mul_chain`) and the arithmetic under the plain versions of the
 point-add kernels K5 and K6 (ops/fq.py, csrc/fq_mont.cu).  `canonical`
-reduces relaxed limbs to the canonical limbs of value mod q: K5 computes
-on 32-bit words and is held against its plain version by value.
+reduces relaxed limbs to the canonical limbs of value mod q: K4, K5 and
+K6 compute on 32-bit words and are held against their plain versions by
+value.
 
 Representation ("relaxed" limbs): value = sum l_i 2^(12 i) with signed
 limbs |l_i| <= 2^12 + 2 and a small top (headroom) limb; representatives
@@ -270,7 +271,7 @@ def canonical(t):
     one sign (no cancellation: error < 2^-4 at 2^15 q) and leaves a
     remainder in (-q, q); corrections bring it to [0, q), and a negative
     value takes q minus its magnitude's residue.  The value comparison of
-    K5 with its plain version (ops/fq.py)."""
+    K4, K5 and K6 with their plain versions (ops/fq_check.py)."""
     c = consts(t.device)
     nd = t.dim()
     q = _col(c["q"], nd)

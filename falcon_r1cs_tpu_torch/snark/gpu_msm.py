@@ -415,7 +415,8 @@ def _window_sums(digits, Xm, Ym, window: int, G: int):
 
 def _points_mont(points, n_pad: int, device):
     """Montgomery-domain limb-major (35, n_pad) coordinate tensors on
-    `device`, converted by one K4 launch (mont_mul by R^2) over X|Y and
+    `device`, converted by one K4 launch (mont_mul by R^2) over X|Y (on the
+    card canonical limbs; on the CPU the plain version's relaxed ones) and
     cached on the G1Array: the prover reuses the same CRS queries for
     every proof (the G1Array must not be mutated after first use)."""
     device = torch.device(device)

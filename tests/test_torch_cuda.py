@@ -210,7 +210,7 @@ def test_schoolbook_engine_on_card_matches_cpu(cuda, n):
 
 def _mont_points(m, seed, device):
     """m random G1 points (native fixed-base) as limb-major Montgomery X, Y
-    on `device`, converted by K4 (mont_mul by R^2)."""
+    on `device`, converted by K4 (mont_mul by R^2): canonical limbs."""
     rng = np.random.default_rng(seed)
     arr = native_backend.g1_fixed_base_batch([int(x) for x in rng.integers(1, 2**62, m)])
     xs, ys = gpu_msm._points_std_limbs(arr, m)
@@ -236,25 +236,28 @@ def _select_path_points(m, device):
     return (X, Y, inf1), (X2, Y2, inf2)
 
 
-def _assert_value_equal(got, want, p1, p2):
-    """K5's contract: each coordinate congruent mod q to the plain
-    version's, flags exactly equal; where the plain version's f32-steered
-    equality test errs, the exact host reference decides."""
+def _assert_value_equal(got, want, p1=None, p2=None):
+    """The Fq kernels' contract: each coordinate congruent mod q to the
+    plain version's, flags exactly equal; for a point add, where the plain
+    version's f32-steered equality test errs, the exact host reference
+    decides."""
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
     assert fq_check.value_check(got, want, p1, p2)[0] == 0
 
 
 def test_fq_kernels_match_plain(cuda):
-    """K4 (depth 1 and 4) and K6 against their plain versions, bit for
-    bit, and K5 by value, on every select path."""
+    """K4 (depth 1 and 4), K5 and K6 against their plain versions by
+    value, on every select path; K4's outputs, and K5's and K6's where no
+    operand is infinite, are canonical limbs."""
     m = 4096
     (X, Y, inf1), (X2, Y2, inf2) = _select_path_points(m, cuda)
     for depth in (1, 4):
         before = fq.mont_mul_cuda.launches
         got = fq.mont_mul_cuda(X, Y2, depth)
         assert fq.mont_mul_cuda.launches == before + 1
-        assert torch.equal(got, fq.mont_mul_cuda.plain(X, Y2, depth))
+        _assert_value_equal((got,), (fq.mont_mul_cuda.plain(X, Y2, depth),))
+        assert torch.equal(fq_mont.canonical(got), got)
     one = fq_mont.consts(cuda)["one"][:, None].expand(35, m).contiguous()
     p1, p2 = (X, Y, one, inf1), (X2, Y2, one.clone(), inf2)
     got = fq.point_add_cuda(p1, p2)
@@ -268,8 +271,12 @@ def test_fq_kernels_match_plain(cuda):
     _assert_value_equal(fq.point_add_cuda(got, p1), fq.point_add_cuda.plain(got, p1), got, p1)
     a1, a2 = (X, Y, inf1), (X2, Y2, inf2)
     got = fq.point_add_aff_cuda(a1, a2)
-    for g, w in zip(got, fq.point_add_aff_cuda.plain(a1, a2)):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    want = fq.point_add_aff_cuda.plain(a1, a2)
+    _assert_value_equal(got, want, a1, a2)
+    assert got[3][64:96].all()
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(fq_mont.canonical(g)[:, live], g[:, live])
+        assert torch.equal(g[:, ~live], w[:, ~live])  # as given, Z = one
     torch.cuda.synchronize()
 
 
@@ -287,6 +294,21 @@ def test_point_add_kernel_far_from_canonical(cuda, kind):
     for other in (fed, (X2, Y2, one, inf2)):
         _assert_value_equal(fq.point_add_cuda(far, other), fq.point_add_cuda.plain(far, other),
                             far, other)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["wide", "pos", "neg", "sub"])
+def test_point_add_aff_kernel_far_from_canonical(cuda, kind):
+    """K6 == point_add_aff by value on X and Y far from canonical, against
+    the same points (the doubling path) and against the other affine
+    operands (the chord, with every select path)."""
+    m = 1024
+    (X, Y, inf1), (X2, Y2, inf2) = _select_path_points(m, cuda)
+    far = (fq_check.far_reps(X, kind, 80).contiguous(),
+           fq_check.far_reps(Y, kind, 81).contiguous(), inf1)
+    for other in ((X, Y, inf1), (X2, Y2, inf2)):
+        _assert_value_equal(fq.point_add_aff_cuda(far, other),
+                            fq.point_add_aff_cuda.plain(far, other), far, other)
     torch.cuda.synchronize()
 
 

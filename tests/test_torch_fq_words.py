@@ -1,16 +1,17 @@
-"""K5's word arithmetic, on the CPU, through a Python-int transcription of
-`csrc/fq_mont.cu`, and the plain `fq_mont.canonical` that holds K5 against
-its plain version by value.
+"""The word arithmetic of K4, K5 and K6, on the CPU, through a Python-int
+transcription of `csrc/fq_mont.cu`, and the plain `fq_mont.canonical` and
+`fq_check.value_check` that hold the kernels against their plain versions
+by value.
 
-The CUDA kernel cannot run here, so these tests transcribe its entry
+The CUDA kernels cannot run here, so these tests transcribe their entry
 (`from_limbs`: relaxed limbs of the R = 2^408 domain -> 12 words of the
-R' = 2^384 domain), its CIOS Montgomery product, its lazy add and
-subtract, its exit (`to_limbs`) and its point-add flow word for word, with
-32-bit wrapping made explicit, and hold them against the plain torch
-arithmetic (`ops/fq_mont.py`, `ops/fq.py`) by value mod q.  The word
-constants are parsed from the CUDA source text, so a typo there fails
-here before any run on a card.  Everything is integer arithmetic:
-tolerance 0.
+R' = 2^384 domain), their CIOS Montgomery product, lazy add and
+subtract, exit (`to_limbs`), the product chain of K4 and the point-add
+flows of K5 and K6 word for word, with 32-bit wrapping made explicit, and
+hold them against the plain torch arithmetic (`ops/fq_mont.py`,
+`ops/fq.py`) by value mod q.  The word constants are parsed from the
+CUDA source text, so a typo there fails here before any run on a card.
+Everything is integer arithmetic: tolerance 0.
 """
 
 import re
@@ -51,6 +52,7 @@ def test_source_constants():
     """The word tables and q' in csrc/fq_mont.cu equal those derived from q."""
     assert QW == _words(Q) and Q2W == _words(2 * Q)
     assert EXITW == _words(pow(2, 408, Q))  # x 2^24 out of the R' = 2^384 domain
+    assert store_limbs(EXITW) == tfq.ONE_MONT_LIMBS.tolist()  # K6's Z = one
     assert QINV == (-pow(Q, -1, 1 << 32)) % (1 << 32)
     assert (QINV & 0xFFFFFF) == (-pow(Q, -1, 1 << 24)) % (1 << 24)
     assert 4 * Q < 1 << 384 and QW[11] < 1 << 31
@@ -198,7 +200,11 @@ def from_limbs(limbs):
 
 def to_limbs(a):
     """`to_limbs`: words of the R' domain -> 35 canonical limbs of a 2^24."""
-    x = reduce(mont(a, EXITW))
+    return store_limbs(reduce(mont(a, EXITW)))
+
+
+def store_limbs(x):
+    """`store_limbs`: words of x < 2^384 -> its 35 12-bit limbs."""
     out = []
     for l in range(35):
         bit = 12 * l
@@ -210,6 +216,40 @@ def to_limbs(a):
                 d |= (x[word + 1] << (32 - off)) & M32
         out.append(d & 0xFFF)
     return out
+
+
+def mont_mul_words(a, b, depth=1):
+    """`mont_mul_kernel` on one point: 35 limbs of a, b -> 35 limbs."""
+    x, y = from_limbs(a), from_limbs(b)
+    for _ in range(depth):
+        x = mont(x, y)
+    return to_limbs(x)
+
+
+def point_double_w(X, Y):
+    """`point_double_w`: Xd, Yd of dbl-2007-bl (the caller forms Zd)."""
+    A, B = mont(X, X), mont(Y, Y)
+    C = mont(B, B)
+    t = addw(X, B)
+    t = subw(subw(mont(t, t), A), C)
+    D = dblw(t)
+    E = addw(dblw(A), A)
+    X3 = subw(mont(E, E), dblw(D))
+    Y3 = subw(mont(E, subw(D, X3)), dblw(C, 3))
+    return X3, Y3
+
+
+def point_chord_w(U1, U2, S1, S2):
+    """`point_chord_w`: X3, Y3 and H = U2 - U1 (the caller forms Z3)."""
+    H = subw(U2, U1)
+    t = dblw(H)
+    I = mont(t, t)
+    J = mont(H, I)
+    rr = dblw(subw(S2, S1))
+    V = mont(U1, I)
+    X3 = subw(subw(mont(rr, rr), J), dblw(V))
+    Y3 = subw(mont(rr, subw(V, X3)), dblw(mont(S1, J)))
+    return X3, Y3, H
 
 
 def point_add_words(p1, p2):
@@ -226,27 +266,29 @@ def point_add_words(p1, p2):
     S2 = mont(mont(from_limbs(y2), Z1), Z1Z1)
     same_x, same_y = eqw(U1, U2), eqw(S1, S2)
     if same_x and same_y:  # dbl-2007-bl on (X1, Y1, Z1)
-        X, Y = from_limbs(x1), from_limbs(y1)
-        A, B = mont(X, X), mont(Y, Y)
-        C = mont(B, B)
-        t = addw(X, B)
-        t = subw(subw(mont(t, t), A), C)
-        D = dblw(t)
-        E = addw(dblw(A), A)
-        X3 = subw(mont(E, E), dblw(D))
-        Y3 = subw(mont(E, subw(D, X3)), dblw(C, 3))
+        Y = from_limbs(y1)
+        X3, Y3 = point_double_w(from_limbs(x1), Y)
         Z3 = dblw(mont(Y, Z1))
     else:
-        ZZ = mont(Z1, Z2)
-        H = subw(U2, U1)
-        t = dblw(H)
-        I = mont(t, t)
-        J = mont(H, I)
-        rr = dblw(subw(S2, S1))
-        V = mont(U1, I)
-        X3 = subw(subw(mont(rr, rr), J), dblw(V))
-        Y3 = subw(mont(rr, subw(V, X3)), dblw(mont(S1, J)))
-        Z3 = dblw(mont(ZZ, H))
+        X3, Y3, H = point_chord_w(U1, U2, S1, S2)
+        Z3 = dblw(mont(mont(Z1, Z2), H))
+    return [to_limbs(X3), to_limbs(Y3), to_limbs(Z3), same_x and not same_y]
+
+
+def point_add_aff_words(p1, p2):
+    """`point_add_aff_kernel` on one point: p = ([35 limbs] x2, inf)."""
+    (x1, y1, inf1), (x2, y2, inf2) = p1, p2
+    if inf1 or inf2:  # the other operand as given, Z the limbs of one
+        src = p2 if inf1 else p1
+        return [list(src[0]), list(src[1]), store_limbs(EXITW), inf1 and inf2]
+    X1, X2, Y1, Y2 = (from_limbs(c) for c in (x1, x2, y1, y2))
+    same_x, same_y = eqw(X1, X2), eqw(Y1, Y2)
+    if same_x and same_y:  # dbl-2007-bl with Z1 = one
+        X3, Y3 = point_double_w(X1, Y1)
+        Z3 = dblw(Y1)
+    else:  # the chord with Z1 = Z2 = one: U = X, S = Y
+        X3, Y3, H = point_chord_w(X1, X2, Y1, Y2)
+        Z3 = dblw(H)
     return [to_limbs(X3), to_limbs(Y3), to_limbs(Z3), same_x and not same_y]
 
 
@@ -373,7 +415,7 @@ def _mont_points(n):
 
 
 def _columns(p, i):
-    return [p[0][:, i].tolist(), p[1][:, i].tolist(), p[2][:, i].tolist(), bool(p[3][i])]
+    return [c[:, i].tolist() for c in p[:-1]] + [bool(p[-1][i])]
 
 
 def _check_by_value(p1, p2):
@@ -498,3 +540,157 @@ def test_value_check_measures_against_the_referee():
     bad_got = tuple(c.clone() for c in got)
     bad_got[3][1] = True
     assert fq_check.value_check(bad_got, want, p1, p2)[0] == 1
+
+
+# --- K4 and K6 --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("depth", [1, 4])
+def test_mont_mul_words_matches_chain(depth):
+    """The transcribed K4 == fq_mont.mont_mul_chain mod q, canonical out,
+    on canonical, lazy and far-from-canonical inputs: from_limbs' words
+    stand for the limbs' field element, so the chain in R' = 2^384 and the
+    exit's 2^24 give the limb chain's value."""
+    vals = _rand_fq(4) + [0, 1, Q - 1]
+    reps = [r for v in vals for r in _far_reps(v)] + [_canon_limbs(v) for v in vals]
+    a = np.stack(reps)
+    b = np.roll(a, 3, axis=0)
+    ta, tb = torch.from_numpy(a.T.copy()), torch.from_numpy(b.T.copy())
+    want = tfq.mont_mul_chain(ta, tb, depth)
+    got = torch.tensor([mont_mul_words(a[i], b[i], depth) for i in range(len(a))]).T
+    assert torch.equal(got, tfq.canonical(want))
+    assert int(got.min()) >= 0 and int(got.max()) < 4096 and not got[34].any()
+    v = [(_value(x) * pow(_value(y) * pow(2, -408, Q), depth, Q)) % Q for x, y in zip(a, b)]
+    assert got.T.tolist() == [_canon_limbs(x).tolist() for x in v]
+
+
+def _affine_points(n):
+    """n random G1 points as canonical Montgomery limbs, as K4 gives them."""
+    X, Y = _mont_points(n)
+    return tfq.canonical(X), tfq.canonical(Y)
+
+
+def _check_aff_by_value(a1, a2):
+    """The transcribed K6 == plain point_add_aff by value, flags exactly;
+    infinity rows limb for limb (the other operand as given, Z = one).
+    Where the two differ, the exact referee on the operands lifted to Z =
+    one decides.  Returns the rows it decided."""
+    from falcon_r1cs_tpu_torch.ops import fq_check
+
+    want = fq.point_add_aff(a1, a2)
+    canon = [tfq.canonical(c) for c in want[:3]] + [want[3]]
+    exact = fq.point_add_exact(fq_check.jacobian(a1), fq_check.jacobian(a2))
+    decided = []
+    for i in range(a1[0].shape[1]):
+        got = point_add_aff_words(_columns(a1, i), _columns(a2, i))
+        if a1[2][i] or a2[2][i]:
+            assert got == _columns(want, i), i
+            continue
+        if got != _columns(canon, i):
+            decided.append(i)
+            assert got == _columns(exact, i), i
+    return decided
+
+
+@pytest.mark.parametrize("neg_y", [False, True])
+def test_point_add_aff_words_matches_plain_by_value(neg_y):
+    """The transcribed K6 == plain point_add_aff mod q, flags exactly, on
+    the doubling, P + (-P), inf1, inf2, both-infinite and chord rows, on
+    canonical Y and on negated canonical Y (every limb <= 0, as the MSM's
+    signed digits feed it)."""
+    m = 12
+    X, Y = _affine_points(m)
+    perm = torch.from_numpy(rng.permutation(m))
+    X2, Y2 = X[:, perm].clone(), Y[:, perm].clone()
+    X2[:, :5] = X[:, :5]          # 0:3 doubling, 3:5 P + (-P)
+    Y2[:, :3] = Y[:, :3]
+    Y2[:, 3:5] = tfq.canonical(-Y[:, 3:5])
+    if neg_y:
+        sign = torch.from_numpy(rng.integers(0, 2, m).astype(bool))
+        Y, Y2 = torch.where(sign, -Y, Y), torch.where(sign, -Y2, Y2)
+        assert int(Y[:, sign].max()) <= 0
+    inf1 = torch.zeros(m, dtype=torch.bool)
+    inf2 = torch.zeros(m, dtype=torch.bool)
+    inf1[5], inf2[6], inf1[7], inf2[7] = True, True, True, True
+    assert _check_aff_by_value((X, Y, inf1), (X2, Y2, inf2)) == []
+    want = fq.point_add_aff((X, Y, inf1), (X2, Y2, inf2))
+    assert want[3].tolist() == [False] * 3 + [True] * 2 + [False] * 2 + [True] + [False] * 4
+
+
+def test_point_add_aff_words_far_from_canonical():
+    """The transcribed K6 == plain point_add_aff mod q on X and Y far from
+    canonical (limbs at +-(2^12 + 2), values near +-2^13 q, negatives),
+    against the same point (the doubling path but for "wide", a value of
+    its own) and against other points (the chord)."""
+    m = 4
+    X, Y = _affine_points(m)
+    no = torch.zeros(m, dtype=torch.bool)
+    for pick in range(4):
+        def far(t):
+            return torch.from_numpy(np.stack(
+                [_far_reps(_value(t[:, i].tolist()) % Q)[pick] for i in range(m)]).T.copy())
+        a1 = (far(X), far(Y), no)
+        for a2 in ((X, Y, no), (X.roll(1, 1), -Y.roll(1, 1), no)):
+            _check_aff_by_value(a1, a2)
+
+
+def test_relaxed_equality_row_goes_to_the_referee():
+    """The Queue 3 input at K6: X1 = -q written with top limb -1 over
+    limbs at 2^12 - 1 (zero), X2 = 0, Y1 = Y2 = the limbs of 2 (the point
+    (0, 2) of y^2 = x^3 + 4).  The words see X1 == X2 and take the doubling
+    path; the plain version's f32-steered test calls them unequal and
+    takes the chord.  The exact referee agrees with the words, and
+    fq_check.value_check counts the row as decided, not as an error."""
+    from falcon_r1cs_tpu_torch.ops import fq_check
+
+    rep = _raw_limbs((1 << 408) - Q)
+    rep[34] = -1
+    two = _canon_limbs(2 * tfq.R_MONT % Q)
+    X, Y = _affine_points(1)
+    x1 = torch.from_numpy(np.stack([rep, X[:, 0].numpy()]).T.copy())
+    y1 = torch.from_numpy(np.stack([two, Y[:, 0].numpy()]).T.copy())
+    x2 = torch.from_numpy(np.stack([np.zeros(35, np.int32), X[:, 0].numpy()]).T.copy())
+    no = torch.zeros(2, dtype=torch.bool)
+    a1, a2 = (x1, y1, no), (x2, y1.clone(), no)
+    assert _check_aff_by_value(a1, a2) == [0]
+    want = fq.point_add_aff(a1, a2)
+    assert not tfq.canonical(want[2])[:, 0].any()  # the chord's Z = 2 H = 0
+    got = [torch.tensor([point_add_aff_words(_columns(a1, i), _columns(a2, i))[k]
+                         for i in range(2)]).T for k in range(3)]
+    got.append(torch.zeros(2, dtype=torch.bool))
+    assert tfq.canonical(got[2])[:, 0].tolist() == _canon_limbs(4 * tfq.R_MONT % Q).tolist()
+    assert fq_check.value_check(tuple(got), want, a1, a2) == (0, 1)
+
+
+def test_value_check_affine_and_product():
+    """fq_check.value_check on K6's and K4's forms: affine operands lifted
+    to Z = one for the referee (a row where the plain version is wrong is
+    decided, not an error; a wrong coordinate of the kernel shows as a limb
+    difference), and a bare (35, m) product with no referee."""
+    from falcon_r1cs_tpu_torch.ops import fq_check
+
+    m = 6
+    X, Y = _affine_points(m)
+    no = torch.zeros(m, dtype=torch.bool)
+    inf2 = no.clone()
+    inf2[1] = True
+    a1, a2 = (X, Y, no), (X.roll(1, 1), Y.roll(1, 1), inf2)
+    a2[0][:, 0], a2[1][:, 0] = X[:, 0], Y[:, 0]  # a doubling row
+    lifted = fq_check.jacobian(a1)
+    assert torch.equal(lifted[2], tfq.consts("cpu")["one"][:, None].expand(35, m))
+    assert fq_check.jacobian(lifted) is lifted
+    want = fq.point_add_aff(a1, a2)
+    got = tuple(tfq.canonical(c) for c in want[:3]) + (want[3].clone(),)
+    assert fq_check.value_check(got, want, a1, a2) == (0, 0)
+    bad_want = tuple(c.clone() for c in want)
+    bad_want[0][:, 3] = tfq.add_mod(bad_want[0][:, 3:4], bad_want[2][:, 3:4])[:, 0]
+    bad_want[3][5] = True
+    assert fq_check.value_check(got, bad_want, a1, a2) == (0, 2)
+    bad_got = tuple(c.clone() for c in got)
+    bad_got[2][0, 4] += 3
+    assert fq_check.value_check(bad_got, want, a1, a2)[0] == 3
+    prod = tfq.mont_mul_chain(X, Y, 2)
+    assert fq_check.value_check((tfq.canonical(prod),), (prod,)) == (0, 0)
+    wrong = tfq.canonical(prod)
+    wrong[7, 2] ^= 1
+    assert fq_check.value_check((wrong,), (prod,)) == (1, 0)

@@ -50,7 +50,6 @@ def mock_library(monkeypatch):
     monkeypatch.setattr(_build, "_get_device", lambda: 0)
     monkeypatch.setattr(_build, "_raw_stream", lambda index: STREAM + index)
     monkeypatch.setattr(_build.torch.cuda, "device", Device)
-    monkeypatch.setattr(fq, "_load_constants", lambda index: None)
     for cache in (cuda_ntt._tables, cuda_ntt._semi_tables):
         cache.cache_clear()
     with warnings.catch_warnings():
@@ -100,7 +99,7 @@ def test_every_wrapper_launches_through_the_helper(mock_library):
             assert len(args) == len(_build._ARGTYPES[entry]) and args[-1] == STREAM, entry
             assert wrapper.launches == before + 1, entry
     assert contexts == []
-    assert {e for _, e, _ in cases} == set(_build._ARGTYPES) - {"fq_load_constants"}
+    assert {e for _, e, _ in cases} == set(_build._ARGTYPES)
 
 
 def test_launch_enters_the_device_only_when_not_current(mock_library, monkeypatch):
