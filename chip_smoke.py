@@ -23,8 +23,10 @@ kernels (counts set to 0 just before the path, read just after), holds
 each kernel against its plain torch version on the card (all integer
 arithmetic: bit-exact, except the Fq kernels K4, K5 and K6, whose
 coordinates must agree mod q, compared in canonical form, and whose flags
-must be equal; K5 and K6 also on rows far from canonical), and times both
-with CUDA events.  Each kernel's
+must be equal; K5 and K6 also on rows far from canonical; K1 and K2 also
+on rows of all q - 1, all 0 and one-hot), and times both with CUDA events,
+K1, K2, K4, K5, K6 and K8 also by profiler device time, with their
+ptxas registers, stack, spill and shared memory.  Each kernel's
 bound is the larger of its bytes over the card's memory rate and its
 int32 multiply(-add)s over the card's int32 rate (H100_* below).  K7's
 launch path is costed step by step beside torch.add.
@@ -502,10 +504,11 @@ def semi_path(dev, counted):
     return launches
 
 
-def semi_kernel_vs_plain(dev, launches):
+def semi_kernel_vs_plain(dev, launches, build_log):
     """K8 against ntt_semi at n = 512 and 1024, B = N_SIGS, with one row of
     all q - 1 and one of all 0, limb for limb; the entry over it against K1;
-    times of K8, the entry, K1 and the plain version; K8's record."""
+    times of K8, the entry, K1 and the plain version; K8's record with its
+    profiler device time and ptxas lines."""
     from falcon_r1cs_tpu_torch import FALCON_512, FALCON_1024, Q
     from falcon_r1cs_tpu_torch.ops import cuda_ntt, ntt_limb, ntt_v3
 
@@ -525,26 +528,32 @@ def semi_kernel_vs_plain(dev, launches):
         for a, c in zip(ntt_v3.ntt_with_hints_v3(x, p), cuda_ntt.ntt_with_hints_cuda(x, p)):
             assert torch.equal(a, c), f"ntt_with_hints_v3 n={p.n} != K1"
         ms = cuda_ms(lambda: wrapper(x, p))
+        dev_ms = kernel_device_ms(wrapper, (x, p))
         entry_ms = cuda_ms(lambda: ntt_v3.ntt_with_hints_v3(x, p))
         k1_ms = cuda_ms(lambda: cuda_ntt.ntt_with_hints_cuda(x, p))
         plain_ms = cuda_ms(lambda: wrapper.plain(x, p), reps=10, inner=2)
-        log(f"ntt_semi_kernel n={p.n} B={N_SIGS}: kernel {ms:.4f} ms, plain "
+        log(f"ntt_semi_kernel n={p.n} B={N_SIGS}: kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, bit-equal ({redundant} rows hold limbs outside "
             f"[0, 2^16)); ntt_with_hints_v3 {entry_ms:.4f} ms == hint kernel "
             f"{k1_ms:.4f} ms on the same rows")
     # x read, 12 limbs written, the stage tables; one multiply a limb of
     # each butterfly's hi slot, all 12 limbs every stage (no trim)
     coeffs = N_SIGS * p.n
+    # its 12 x n state and the bound limbs in dynamic shared memory
+    stats = ptxas(build_log, "15ntt_semi_kernelILi10E", p.n // 2,
+                  dyn_smem=4 * (12 * p.n + (p.log_n + 1) * 12))
     return record(
         "ntt_semi_kernel", "falcon_r1cs_tpu_torch/csrc/ntt_v3.cu",
         "tools/pallas_ntt_v3.py:49", launches["ntt_semi_kernel"], err, ms, plain_ms,
         4 * (13 * coeffs + p.log_n * p.n + (p.log_n + 1) * 12),
-        N_SIGS * p.log_n * (p.n // 2) * 12,
+        N_SIGS * p.log_n * (p.n // 2) * 12, device_ms=dev_ms, **stats,
     )
 
 
 def ptxas_stats(log_text, kernel):
-    """Registers, stack and spill bytes of one kernel from `-Xptxas -v`."""
+    """Registers, stack, spill and static shared bytes of one kernel from
+    `-Xptxas -v`; `kernel` is a fragment of its (mangled) name."""
     lines = log_text.splitlines()
     for k, line in enumerate(lines):
         if "Compiling entry function" in line and kernel in line:
@@ -552,23 +561,44 @@ def ptxas_stats(log_text, kernel):
             regs = re.search(r"Used (\d+) registers", block)
             stack = re.search(r"(\d+) bytes stack frame", block)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            smem = re.search(r"(\d+) bytes smem", block)
             return {
                 "registers": int(regs.group(1)) if regs else None,
                 "stack": int(stack.group(1)) if stack else None,
                 "spill_stores": int(spill.group(1)) if spill else None,
                 "spill_loads": int(spill.group(2)) if spill else None,
+                "smem": int(smem.group(1)) if smem else 0,
             }
     raise RuntimeError(f"no ptxas lines for {kernel}")
 
 
-def resident(registers, threads):
-    """(blocks, warps) an H100 SM holds at this register count: 65,536
-    registers, allocated per warp in units of 256, at most 32 blocks and 64
-    warps."""
+def resident(registers, threads, smem=0):
+    """(blocks, warps) an H100 SM holds at this register count and static
+    shared memory: 65,536 registers, allocated per warp in units of 256;
+    233,472 B of shared memory, 1 KB of it reserved a block; at most 32
+    blocks and 64 warps."""
     warps = threads // 32
     per_warp = -(-registers * 32 // 256) * 256
-    blocks = min(32, 64 // warps, 65536 // (per_warp * warps))
+    blocks = min(32, 64 // warps, 65536 // (per_warp * warps), 233472 // (smem + 1024))
     return blocks, blocks * warps
+
+
+def ptxas(build_log, kernel, threads, dyn_smem=0):
+    """ptxas_stats of one kernel, logged with its SM residency at `threads`
+    a block ({} when the library was already built: no log)."""
+    if not build_log:
+        return {}
+    stats = ptxas_stats(build_log, kernel)
+    blocks, warps = resident(stats["registers"], threads, stats["smem"] + dyn_smem)
+    log(f"{kernel} ptxas: {stats}; {blocks} blocks, {warps} warps an SM")
+    return stats
+
+
+def kernel_device_ms(wrapper, args, calls=10):
+    """The kernel alone: profiler device ms a launch.  The CUDA-event time
+    of back-to-back wrapper calls is the longer of this and the wrapper's
+    host cost a call."""
+    return device_kernel_ms(lambda: [wrapper(*args) for _ in range(calls)])[1] / calls
 
 
 def select_path_rows(m, dev, seed=20261019):
@@ -627,20 +657,6 @@ def fq_kernels_vs_plain(dev, launches, build_log):
         plain_ms = cuda_ms(lambda: wrapper.plain(*args), reps=plain_reps, inner=1, warmup=1)
         return err, ms, kernel_device_ms(wrapper, args), plain_ms, referee_rows
 
-    def kernel_device_ms(wrapper, args, calls=10):
-        """The kernel alone: profiler device ms a launch.  The CUDA-event
-        time of back-to-back wrapper calls is the longer of this and the
-        wrapper's host cost a call."""
-        return device_kernel_ms(lambda: [wrapper(*args) for _ in range(calls)])[1] / calls
-
-    def ptxas(kernel):
-        if not build_log:
-            return {}
-        stats = ptxas_stats(build_log, kernel)
-        blocks, warps = resident(stats["registers"], 128)
-        log(f"{kernel} ptxas: {stats}; {blocks} blocks, {warps} warps an SM")
-        return stats
-
     def far_rows(wrapper, fed, others):
         """value_check on 4,096 rows of `fed` (coordinates made far from
         canonical, each kind) against each of `others`: the rows the exact
@@ -674,14 +690,14 @@ def fq_kernels_vs_plain(dev, launches, build_log):
         "mont_mul_kernel", "falcon_r1cs_tpu_torch/csrc/fq_mont.cu",
         "falcon_r1cs_tpu/ops/pallas_fq.py:280", launches["mont_mul_kernel"], err, ms,
         plain_ms, 3 * limb_bytes, MONT_MUL_MULS * m, referee_rows=referee_rows,
-        device_ms=dev_ms, **ptxas("mont_mul_kernel"),
+        device_ms=dev_ms, **ptxas(build_log, "mont_mul_kernel", 128),
     ))
     err, ms, dev_ms, plain_ms, referee_rows = compare("point_add_kernel", fq.point_add_cuda,
                                                       (p1, p2))
     log(f"point_add_kernel m={m}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, equal by value (canonical mod q), flags equal; "
         f"{referee_rows} rows decided by the exact host reference")
-    stats = ptxas("point_add_kernel")
+    stats = ptxas(build_log, "point_add_kernel", 128)
     # a K5 output with Z != one plus itself (the tangent) and plus an
     # affine point (the chord)
     fed = fq.point_add_cuda(p1, p2)
@@ -707,7 +723,7 @@ def fq_kernels_vs_plain(dev, launches, build_log):
     log(f"point_add_aff_kernel m={m}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, equal by value (canonical mod q), flags equal; "
         f"{referee_rows} rows decided by the exact host reference")
-    stats = ptxas("point_add_aff_kernel")
+    stats = ptxas(build_log, "point_add_aff_kernel", 128)
     # X and Y far from canonical plus the same point (the tangent) and plus
     # the other affine operand (the chord, every select path)
     referred = far_rows(fq.point_add_aff_cuda, a1, (a1, a2))
@@ -936,20 +952,29 @@ def main():
             np.random.default_rng(p.n).integers(0, port.Q, size=(N_SIGS, p.n))
             .astype(np.int32)
         ).to(dev)
-        for name, wrapper, replaces in (
-            ("ntt_hints_kernel", cuda_ntt.ntt_with_hints_cuda,
+        # the edge rows: all q - 1 (the largest values at every stage), all
+        # 0 and a one-hot row
+        x[-3], x[-2], x[-1] = port.Q - 1, 0, 0
+        x[-1, 7] = 1
+        for name, mangled, wrapper, replaces in (
+            ("ntt_hints_kernel", "16ntt_hints_kernelILi", cuda_ntt.ntt_with_hints_cuda,
              "falcon_r1cs_tpu/ops/pallas_ntt.py:168"),
-            ("intt_ntt_hints_kernel", cuda_ntt.intt_ntt_hints_cuda,
-             "falcon_r1cs_tpu/ops/pallas_ntt.py:186"),
+            ("intt_ntt_hints_kernel", "21intt_ntt_hints_kernelILi",
+             cuda_ntt.intt_ntt_hints_cuda, "falcon_r1cs_tpu/ops/pallas_ntt.py:186"),
         ):
             got = wrapper(x, p)
+            torch.cuda.synchronize()
             want = wrapper.plain(x, p)
             err = max_abs_err(got, want)
             assert err == 0, f"{name} n={p.n} differs from its plain version"
             ms = cuda_ms(lambda: wrapper(x, p))
+            dev_ms = kernel_device_ms(wrapper, (x, p))
             plain_ms = cuda_ms(lambda: wrapper.plain(x, p))
-            log(f"{name} n={p.n} B={N_SIGS}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bit-equal")
+            log(f"{name} n={p.n} B={N_SIGS}: kernel {ms:.4f} ms (device {dev_ms:.4f} "
+                f"ms), plain {plain_ms:.4f} ms, bit-equal (rows of all q - 1, all 0 "
+                "and one-hot included)")
+            # n / 8 threads a row
+            stats = ptxas(build_log, f"{mangled}{p.log_n}E", p.n // 8)
             if p is params and wrapper is cuda_ntt.intt_ntt_hints_cuda:
                 # the choice fused_intt makes: K2 vs torch INTT + K1
                 unfused_ms = cuda_ms(lambda: intt_then_hints(x, p, False))
@@ -970,6 +995,7 @@ def main():
                 records.append(record(
                     name, "falcon_r1cs_tpu_torch/csrc/ntt_hints.cu", replaces,
                     launches[name], err, ms, plain_ms, nbytes, mads,
+                    device_ms=dev_ms, **stats,
                 ))
     for p in (port.FALCON_512, port.FALCON_1024):
         rng = np.random.default_rng(p.n + 1)
@@ -1014,7 +1040,7 @@ def main():
     log("  launch path, host us a call of each step: "
         + "; ".join(f"{k} {v:.2f}" for k, v in costs.items()))
     records += fq_kernels_vs_plain(dev, g16_launches, build_log)
-    records.append(semi_kernel_vs_plain(dev, semi_launches))
+    records.append(semi_kernel_vs_plain(dev, semi_launches, build_log))
 
     # device part of the main path alone: engine + packer on uploaded inputs
     engine = witness_engine(params.n)

@@ -76,6 +76,8 @@
 
 #include <cuda_runtime.h>
 
+#include "carry_chain.cuh"  // the PTX carry-chain steps
+
 namespace {
 
 constexpr int kLimb = 12;
@@ -92,7 +94,6 @@ __device__ __forceinline__ int wadd(int a, int b) {
 __device__ __forceinline__ int asr(int x, int s) { return x >> s; }
 
 constexpr int kW = 12;
-using u32 = uint32_t;
 using u64 = uint64_t;
 
 // q = 0x1a0111ea397fe69a4b1ba7b6434bacd764774b84f38512bf6730d2a0f6b0f624
@@ -118,28 +119,6 @@ constexpr u32 kLow24 = 0xffffffu;
 struct Fw {
   u32 w[kW];
 };
-
-// PTX carry-chain steps (one instruction each, the carry flag passes from
-// one to the next; nothing between two steps of a chain writes the flag)
-__device__ __forceinline__ void mad_lo_cc(u32& d, u32 a, u32 b) {
-  asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(d) : "r"(a), "r"(b));
-}
-__device__ __forceinline__ void madc_lo_cc(u32& d, u32 a, u32 b) {
-  asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(d) : "r"(a), "r"(b));
-}
-// d = c + hi(a b) (+ carry), d need not be c's register
-__device__ __forceinline__ void mad_hi_cc(u32& d, u32 a, u32 b, u32 c) {
-  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-}
-__device__ __forceinline__ void madc_hi_cc(u32& d, u32 a, u32 b, u32 c) {
-  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-}
-__device__ __forceinline__ void madc_hi(u32& d, u32 a, u32 b, u32 c) {
-  asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-}
-__device__ __forceinline__ void addc_zero(u32& d) {
-  asm volatile("addc.u32 %0, %0, 0;" : "+r"(d));
-}
 
 // o = a b 2^-384 mod q, lazy: a, b < 2q -> o < 2q.  CIOS: per word b_i,
 // t += a b_i, then t = (t + m q) / 2^32 with m = t_0 q' mod 2^32; t stays

@@ -49,12 +49,9 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 _ARGTYPES = {
-    "ntt_hints_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
-    "intt_ntt_hints_launch": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P,
-    ],
+    "ntt_hints_launch": [_P] * 5 + [_I, _I, _P],
+    "intt_ntt_hints_launch": [_P] * 7 + [_I, _I, _P],
     "ntt_semi_launch": [_P, _P, _P, _P, _I, _I, _P],
     "add_one_launch": [_P, _P, _I, _P],
     "schoolbook_prods_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
@@ -73,9 +70,9 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in sorted(_CSRC.glob("*.cu")):
+    for src in sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_DIR / f"libfalcon_r1cs_kernels_{h.hexdigest()[:16]}.so"

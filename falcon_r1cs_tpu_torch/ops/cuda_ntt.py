@@ -29,13 +29,8 @@ from . import _build
 from .limbs import LIMB_BITS, NUM_LIMBS, int_to_limbs
 from .ntt_limb import SEMI_LIMBS, intt_with_hints, ntt_with_hints
 
-_INV_Q_F32 = float(np.float32(1.0 / Q))
-
-# 16-bit Montgomery constants of the INTT prologue: QINV16 = -q^-1 mod
-# 2^16, split into 8-bit halves so every in-kernel product stays < 2^24
-_QINV16 = (-pow(Q, -1, 1 << 16)) % (1 << 16)
-_QINV16_LO = _QINV16 & 0xFF
-_QINV16_HI = _QINV16 >> 8
+# 32-bit words a coefficient of the hint kernels holds (every value < 2^164)
+WORDS = 6
 
 
 def _stage_tables(params: FalconParams):
@@ -57,7 +52,8 @@ def _active_limbs(params: FalconParams):
     """Per-stage active limb counts: after stage l every value is below
     const_q_powers[l+1] and the stage's intermediates below twice that, so
     only ceil((bits + 2) / 16) limb rows take part; the rows above stay
-    zero from initialization."""
+    zero from initialization.  The hint kernels hold ceil(act / 2) words of
+    32 bits a stage (`kActiveWords` in csrc/ntt_hints.cu)."""
     return [
         min(
             NUM_LIMBS,
@@ -68,28 +64,29 @@ def _active_limbs(params: FalconParams):
     ]
 
 
-def _inv_stage_tables(params: FalconParams):
-    """(log_n, n) per-position inverse twiddles premultiplied by 2^16 mod q
-    (Montgomery domain), row l for INTT level l."""
-    n, log_n = params.n, params.log_n
-    table = np.asarray(params.inv_ntt_table, dtype=np.int64)
-    itw = np.zeros((log_n, n), dtype=np.int32)
-    j = np.arange(n)
-    for l in range(log_n):
-        half = n >> (l + 1)
-        itw[l] = (table[(1 << l) + j // (2 * half)] << 16) % Q
-    return itw
+def _bound_words(params: FalconParams):
+    """(log_n + 1, WORDS) 32-bit words of the stage bounds
+    (const_q_powers), least first, as int32 bit patterns."""
+    words = [[(c >> (32 * w)) & 0xFFFFFFFF for w in range(WORDS)]
+             for c in params.const_q_powers]
+    return np.asarray(words, dtype=np.uint32).view(np.int32)
 
 
 def tables_from_params(params: FalconParams, device) -> dict:
     """The kernels' tables for one parameter set, as int32 tensors on
-    `device`: tw and itw (log_n, n), bounds (log_n + 1, 11), act (log_n,)."""
+    `device`.  The hint kernels K1 and K2: roots (n,) = ntt_table, inv_roots
+    (n,) = inv_ntt_table premultiplied by 2^16 mod q (the INTT's Montgomery
+    domain), bound_words (log_n + 1, WORDS).  The semi-carry kernel K8:
+    the per-position twiddles tw (log_n, n) and the bound limbs bounds
+    (log_n + 1, 11)."""
     tw, bounds = _stage_tables(params)
+    inv = np.asarray(params.inv_ntt_table, dtype=np.int64)
     host = {
+        "roots": np.asarray(params.ntt_table, dtype=np.int32),
+        "inv_roots": ((inv << 16) % Q).astype(np.int32),
+        "bound_words": _bound_words(params),
         "tw": tw,
-        "itw": _inv_stage_tables(params),
         "bounds": bounds,
-        "act": np.asarray(_active_limbs(params), dtype=np.int32),
     }
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
@@ -122,6 +119,8 @@ def _check_input(x, params: FalconParams, name: str):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     _check_layout(x, params, name)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: input must be 16-byte aligned")
 
 
 def ntt_with_hints_cuda(x, params: FalconParams):
@@ -137,9 +136,8 @@ def ntt_with_hints_cuda(x, params: FalconParams):
     tab = _tables(n, x.device)
     _build.launch(
         "ntt_hints_launch", x.device,
-        x.data_ptr(), tab["tw"].data_ptr(), tab["bounds"].data_ptr(),
-        tab["act"].data_ptr(), t.data_ptr(), b.data_ptr(),
-        batch, params.log_n, _INV_Q_F32,
+        x.data_ptr(), tab["roots"].data_ptr(), tab["bound_words"].data_ptr(),
+        t.data_ptr(), b.data_ptr(), batch, params.log_n,
     )
     ntt_with_hints_cuda.launches += 1
     return t, b
@@ -161,14 +159,11 @@ def intt_ntt_hints_cuda(w, params: FalconParams):
     if batch == 0:
         return t, b, v
     tab = _tables(n, w.device)
-    n_inv_mont = (pow(n, Q - 2, Q) << 16) % Q
     _build.launch(
         "intt_ntt_hints_launch", w.device,
-        w.data_ptr(), tab["tw"].data_ptr(), tab["itw"].data_ptr(),
-        tab["bounds"].data_ptr(), tab["act"].data_ptr(),
-        t.data_ptr(), b.data_ptr(), v.data_ptr(),
-        batch, params.log_n, _INV_Q_F32,
-        _QINV16_LO, _QINV16_HI, n_inv_mont,
+        w.data_ptr(), tab["roots"].data_ptr(), tab["inv_roots"].data_ptr(),
+        tab["bound_words"].data_ptr(), t.data_ptr(), b.data_ptr(), v.data_ptr(),
+        batch, params.log_n,
     )
     intt_ntt_hints_cuda.launches += 1
     return t, b, v

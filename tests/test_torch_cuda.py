@@ -42,20 +42,26 @@ def _rand(shape, seed, device):
 
 @pytest.mark.parametrize("params", [FALCON_512, FALCON_1024])
 def test_kernels_match_plain(cuda, params):
+    """K1 and K2 against their plain versions, bit for bit, on random rows,
+    a row of all q - 1, one of all 0 and a one-hot row, at 64 rows and at
+    1 and 3."""
     x = _rand((64, params.n), 31, cuda)
     x[0, :3] = torch.tensor([0, Q - 1, Q - 1], dtype=torch.int32)
-    before = cuda_ntt.ntt_with_hints_cuda.launches
-    for got, want in zip(
-        cuda_ntt.ntt_with_hints_cuda(x, params),
-        cuda_ntt.ntt_with_hints_cuda.plain(x, params),
-    ):
-        assert got.dtype == want.dtype and torch.equal(got, want)
-    assert cuda_ntt.ntt_with_hints_cuda.launches == before + 1
-    for got, want in zip(
-        cuda_ntt.intt_ntt_hints_cuda(x, params),
-        cuda_ntt.intt_ntt_hints_cuda.plain(x, params),
-    ):
-        assert got.dtype == want.dtype and torch.equal(got, want)
+    x[1], x[2], x[3] = Q - 1, 0, 0
+    x[3, 5] = 1
+    for rows in (x, x[1:2], x[1:4]):
+        before = cuda_ntt.ntt_with_hints_cuda.launches
+        for got, want in zip(
+            cuda_ntt.ntt_with_hints_cuda(rows, params),
+            cuda_ntt.ntt_with_hints_cuda.plain(rows, params),
+        ):
+            assert got.dtype == want.dtype and torch.equal(got, want)
+        assert cuda_ntt.ntt_with_hints_cuda.launches == before + 1
+        for got, want in zip(
+            cuda_ntt.intt_ntt_hints_cuda(rows, params),
+            cuda_ntt.intt_ntt_hints_cuda.plain(rows, params),
+        ):
+            assert got.dtype == want.dtype and torch.equal(got, want)
     torch.cuda.synchronize()
 
 
@@ -105,6 +111,9 @@ def test_wrappers_reject_bad_inputs(cuda):
         cuda_ntt.intt_ntt_hints_cuda(
             torch.zeros((512, 4), dtype=torch.int32, device=cuda).t(), FALCON_512
         )
+    flat = torch.zeros(2 * 512 + 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # contiguous but not 16-byte aligned
+        cuda_ntt.intt_ntt_hints_cuda(flat[1:].view(2, 512), FALCON_512)
 
 
 @pytest.mark.parametrize("fused_intt", [False, True])
