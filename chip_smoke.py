@@ -15,7 +15,8 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
   MSMs (n_pad = 2^18) run on the Fq kernels, against the native C prover
   with the same r and s; each MSM against the native C MSM;
 - the semi-carry hint path: `ntt_with_hints_v3` on 1024 rows of
-  Falcon-1024 coefficients, one launch of the semi-carry kernel, its
+  Falcon-1024 coefficients, one launch of the semi-carry kernel (its
+  hints epilogue, which normalises and divides by q in registers), its
   (t, b) equal to the hint kernel's on the same rows.
 
 It builds the kernels from csrc/, checks that each path launched its
@@ -26,10 +27,12 @@ coordinates must agree mod q, compared in canonical form, and whose flags
 must be equal; K5 and K6 also on rows far from canonical; K1 and K2 also
 on rows of all q - 1, all 0 and one-hot), and times both with CUDA events,
 K1, K2, K4, K5, K6 and K8 also by profiler device time, with their
-ptxas registers, stack, spill and shared memory.  Each kernel's
-bound is the larger of its bytes over the card's memory rate and its
-int32 multiply(-add)s over the card's int32 rate (H100_* below).  K7's
-launch path is costed step by step beside torch.add.
+ptxas registers, stack, spill and shared memory (K8: both epilogues).
+Each kernel's bound is the larger of its bytes over the card's memory
+rate and its int32 multiply(-add)s over the card's int32 rate (H100_*
+below); K8's operations are the compiled kernel's own SASS, pipe by pipe
+(`sass_pipe_ops`).  K7's launch
+path is costed step by step beside torch.add.
 
     python3 chip_smoke.py
 
@@ -65,6 +68,12 @@ TIMING_REPS = 20
 # lanes, so its int32 multiply-add peak is 132 x 64 x 1.98e9 per second.
 H100_BYTES_PER_S = 3.35e12
 H100_INT32_MAD_PER_S = 132 * 64 * 1.98e9
+# Each of an SM's four partitions issues one warp instruction a clock, 128
+# lanes a clock an SM.  The integer ALU pipe (these opcodes) has 64 lanes
+# an SM; IMAD (multiplies, and the adds and moves the compiler puts there)
+# issues on the FMA pipe, also 64 lanes, beside it.
+H100_ALU_OPCODES = frozenset(
+    ("IADD3", "LOP3", "LEA", "SHF", "ISETP", "SEL", "IMNMX", "PRMT", "PLOP3", "BMSK", "SGXT"))
 # int32 multiplies of one 381-bit Montgomery product, the least the card
 # needs for it: over 12 words of 32 bits (CIOS, R' = 2^384), a b is 144
 # word products, each a mul.lo and a mul.hi (288), and the reduction per
@@ -84,20 +93,43 @@ def log(*args):
     print(*args, flush=True)
 
 
-def record(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
-           library_ms=None, **extra):
-    """One entry of the kernels line; the bound is the larger of the bytes
-    the function must move and its int32 multiply(-add)s, each over the
-    card's peak rate; `extra` keys follow the contract's."""
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the larger of the bytes the function
+    must move and its int32 operations (`ops`: the multiply(-add)s of
+    K1-K6, K8's SASS in 64-lane units), each over the card's peak rate."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_INT32_MAD_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def record(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops,
+           library_ms=None, **extra):
+    """One entry of the kernels line, with its `bound`; `extra` keys follow
+    the contract's."""
+    bound_ms, bound_by = bound(nbytes, ops)
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=library_ms, **extra,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms, **extra,
     )
+
+
+def sass_pipe_ops(kernel):
+    """({alu, imad, issued}, ops) of one kernel of the built library, whose
+    mangled name holds `kernel`, a thread: its SASS instructions on the
+    integer ALU pipe, its IMADs, every instruction but NOP; and the
+    instructions in units of the 64-lane int32 rate, the largest of the
+    ALU count, the IMAD count and half the issued count.  The kernel must
+    be straight-line code (no branch but the one after EXIT), so what the
+    listing holds is what a thread issues."""
+    from falcon_r1cs_tpu_torch.ops import _build
+
+    (name, ops), = [(k, v) for k, v in _build.sass_counts(_build.library_path()).items()
+                    if kernel in k]
+    assert ops["BRA"] <= 1, f"{name} is not straight-line code: {dict(ops)}"
+    pipes = {"alu": sum(v for k, v in ops.items() if k in H100_ALU_OPCODES),
+             "imad": ops["IMAD"], "issued": sum(v for k, v in ops.items() if k != "NOP")}
+    return pipes, max(pipes["alu"], pipes["imad"], pipes["issued"] / 2)
 
 
 def cuda_ms(fn, reps=TIMING_REPS, inner=5, warmup=3):
@@ -505,49 +537,87 @@ def semi_path(dev, counted):
 
 
 def semi_kernel_vs_plain(dev, launches, build_log):
-    """K8 against ntt_semi at n = 512 and 1024, B = N_SIGS, with one row of
-    all q - 1 and one of all 0, limb for limb; the entry over it against K1;
-    times of K8, the entry, K1 and the plain version; K8's record with its
-    profiler device time and ptxas lines."""
+    """K8 against its plain versions at n = 512 and 1024, B = N_SIGS, with
+    one row of all q - 1, one of all 0 and a one-hot row: the semi
+    epilogue against ntt_semi limb for limb; the entry (the hints
+    epilogue) against its plain version, ntt_with_hints and K1, bit for
+    bit, one device kernel under the profiler.  K8's record describes the
+    instantiation its path launches, the hints epilogue: the entry's
+    CUDA-event and profiler device times beside its plain version's, its
+    bound from its bytes and its own SASS by pipe, its ptxas; the semi
+    epilogue's numbers are the semi_* keys."""
     from falcon_r1cs_tpu_torch import FALCON_512, FALCON_1024, Q
     from falcon_r1cs_tpu_torch.ops import cuda_ntt, ntt_limb, ntt_v3
 
-    wrapper = ntt_v3.ntt_semi_cuda
+    wrapper, entry = ntt_v3.ntt_semi_cuda, ntt_v3.ntt_with_hints_v3
     for p in (FALCON_512, FALCON_1024):
         x = torch.from_numpy(
             np.random.default_rng(p.n + 2).integers(0, Q, size=(N_SIGS, p.n))
             .astype(np.int32)
         ).to(dev)
-        x[-2], x[-1] = Q - 1, 0
+        x[-3], x[-2], x[-1] = Q - 1, 0, 0
+        x[-1, 7] = 1
         got = wrapper(x, p)
         want = wrapper.plain(x, p)
         err = max_abs_err([got], [want])
         assert err == 0, f"ntt_semi_kernel n={p.n} differs from its plain version"
         redundant = int(((want < 0) | (want > 0xFFFF)).any(2).any(0).sum())
         assert redundant > 0, "no row where parallel and sequential carries differ"
-        for a, c in zip(ntt_v3.ntt_with_hints_v3(x, p), cuda_ntt.ntt_with_hints_cuda(x, p)):
-            assert torch.equal(a, c), f"ntt_with_hints_v3 n={p.n} != K1"
+        got = entry(x, p)
+        entry_err = max_abs_err(got, entry.plain(x, p))
+        assert entry_err == 0, f"ntt_with_hints_v3 n={p.n} differs from its plain version"
+        for a, c, k1 in zip(got, ntt_limb.ntt_with_hints(x, p),
+                            cuda_ntt.ntt_with_hints_cuda(x, p)):
+            assert torch.equal(a, c) and torch.equal(a, k1), \
+                f"ntt_with_hints_v3 n={p.n} != ntt_with_hints or K1"
+        _, _, kernels = device_kernel_ms(lambda: entry(x, p), keep=())
+        assert [c for _, _, c in kernels] == [1] and "ntt_semi_kernel" in kernels[0][0], \
+            f"one entry call ran {kernels}, not one K8 kernel"
         ms = cuda_ms(lambda: wrapper(x, p))
-        dev_ms = kernel_device_ms(wrapper, (x, p))
-        entry_ms = cuda_ms(lambda: ntt_v3.ntt_with_hints_v3(x, p))
-        k1_ms = cuda_ms(lambda: cuda_ntt.ntt_with_hints_cuda(x, p))
+        dev_ms = kernel_device_ms(wrapper, (x, p), "ntt_semi_kernel")
         plain_ms = cuda_ms(lambda: wrapper.plain(x, p), reps=10, inner=2)
-        log(f"ntt_semi_kernel n={p.n} B={N_SIGS}: kernel {ms:.4f} ms (device "
-            f"{dev_ms:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, bit-equal ({redundant} rows hold limbs outside "
-            f"[0, 2^16)); ntt_with_hints_v3 {entry_ms:.4f} ms == hint kernel "
-            f"{k1_ms:.4f} ms on the same rows")
-    # x read, 12 limbs written, the stage tables; one multiply a limb of
-    # each butterfly's hi slot, all 12 limbs every stage (no trim)
+        entry_ms = cuda_ms(lambda: entry(x, p))
+        entry_dev_ms = kernel_device_ms(entry, (x, p), "ntt_semi_kernel")
+        entry_plain_ms = cuda_ms(lambda: entry.plain(x, p), reps=10, inner=2)
+        k1_ms = cuda_ms(lambda: cuda_ntt.ntt_with_hints_cuda(x, p))
+        log(f"ntt_semi_kernel n={p.n} B={N_SIGS}: semi epilogue {ms:.4f} ms (device "
+            f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bit-equal ({redundant} rows hold "
+            f"limbs outside [0, 2^16)); hints epilogue, ntt_with_hints_v3 {entry_ms:.4f} ms "
+            f"(device {entry_dev_ms:.4f} ms, one kernel), plain {entry_plain_ms:.4f} ms, "
+            f"== ntt_with_hints == hint kernel {k1_ms:.4f} ms on the same rows")
+    # x read once, 12 limb planes written (semi) or t's 11 and b (hints),
+    # the stage tables (twiddles, bound limbs) read once
     coeffs = N_SIGS * p.n
-    # its 12 x n state and the bound limbs in dynamic shared memory
-    stats = ptxas(build_log, "15ntt_semi_kernelILi10E", p.n // 2,
-                  dyn_smem=4 * (12 * p.n + (p.log_n + 1) * 12))
+    nbytes = 4 * (13 * coeffs + p.log_n * p.n + (p.log_n + 1) * 12)
+    # the operations: each instantiation's own SASS a thread, by pipe
+    # (sass_pipe_ops), times n / 4 threads a row and N_SIGS rows.  The
+    # counts before, for PERF.md: the multiplies alone (12 limbs, every
+    # stage; PR 4) and 9 instructions a live limb of a pair-stage (more
+    # than the compiled kernel issues on its integer pipes)
+    threads = p.n // 4
+    semi_sass, semi_ops = sass_pipe_ops("15ntt_semi_kernelILi10ELb0E")
+    hints_sass, hints_ops = sass_pipe_ops("15ntt_semi_kernelILi10ELb1E")
+    semi_ops *= threads * N_SIGS
+    hints_ops *= threads * N_SIGS
+    muls = N_SIGS * p.log_n * (p.n // 2) * 12
+    semi_bound, semi_by = bound(nbytes, semi_ops)
+    log(f"ntt_semi_kernel bound n={p.n}: bytes {nbytes / H100_BYTES_PER_S * 1e3:.4f} ms; "
+        f"SASS a thread, semi {semi_sass}, hints {hints_sass}: "
+        f"{semi_ops / H100_INT32_MAD_PER_S * 1e3:.4f} ms (semi), "
+        f"{hints_ops / H100_INT32_MAD_PER_S * 1e3:.4f} ms (hints); the multiplies alone "
+        f"{muls / H100_INT32_MAD_PER_S * 1e3:.4f} ms; 9 instructions a live limb "
+        f"{9 * N_SIGS * (p.n // 2) * sum(ntt_v3.live_limbs(p)) / H100_INT32_MAD_PER_S * 1e3:.4f}"
+        " ms")
+    # one CTA a row, n / 4 threads; the exchange planes in static shared memory
+    semi_stats = ptxas(build_log, "15ntt_semi_kernelILi10ELb0E", threads)
+    hints_stats = ptxas(build_log, "15ntt_semi_kernelILi10ELb1E", threads)
     return record(
         "ntt_semi_kernel", "falcon_r1cs_tpu_torch/csrc/ntt_v3.cu",
-        "tools/pallas_ntt_v3.py:49", launches["ntt_semi_kernel"], err, ms, plain_ms,
-        4 * (13 * coeffs + p.log_n * p.n + (p.log_n + 1) * 12),
-        N_SIGS * p.log_n * (p.n // 2) * 12, device_ms=dev_ms, **stats,
+        "tools/pallas_ntt_v3.py:49", launches["ntt_semi_kernel"], entry_err, entry_ms,
+        entry_plain_ms, nbytes, hints_ops, epilogue="hints", device_ms=entry_dev_ms,
+        sass=hints_sass, k1_ms=k1_ms, semi_max_abs_err=err, semi_ms=ms,
+        semi_plain_ms=plain_ms, semi_device_ms=dev_ms, semi_bound_ms=semi_bound,
+        semi_bound_by=semi_by, semi_sass=semi_sass, semi_ptxas=semi_stats, **hints_stats,
     )
 
 
@@ -594,11 +664,20 @@ def ptxas(build_log, kernel, threads, dyn_smem=0):
     return stats
 
 
-def kernel_device_ms(wrapper, args, calls=10):
-    """The kernel alone: profiler device ms a launch.  The CUDA-event time
-    of back-to-back wrapper calls is the longer of this and the wrapper's
-    host cost a call."""
-    return device_kernel_ms(lambda: [wrapper(*args) for _ in range(calls)])[1] / calls
+def kernel_device_ms(wrapper, args, kernel, calls=10, tries=3):
+    """The kernel alone: profiler device ms a launch, from a window of
+    `calls` wrapper calls that caught exactly `calls` launches of the
+    kernels whose names hold `kernel`.  The profiler can drop rows, so up
+    to `tries` windows are taken; raises if none was whole.  The CUDA-event
+    time of back-to-back wrapper calls is the longer of this and the
+    wrapper's host cost a call."""
+    for _ in range(tries):
+        _, busy, rows = device_kernel_ms(lambda: [wrapper(*args) for _ in range(calls)],
+                                         keep=(kernel,))
+        caught = sum(c for key, _, c in rows if kernel in key)
+        if caught == calls:
+            return busy / calls
+    raise RuntimeError(f"{calls} launches of {kernel} expected, the profiler caught {rows}")
 
 
 def select_path_rows(m, dev, seed=20261019):
@@ -655,7 +734,7 @@ def fq_kernels_vs_plain(dev, launches, build_log):
         assert err == 0, f"{name} differs by value from its reference"
         ms = cuda_ms(lambda: wrapper(*args))
         plain_ms = cuda_ms(lambda: wrapper.plain(*args), reps=plain_reps, inner=1, warmup=1)
-        return err, ms, kernel_device_ms(wrapper, args), plain_ms, referee_rows
+        return err, ms, kernel_device_ms(wrapper, args, name), plain_ms, referee_rows
 
     def far_rows(wrapper, fed, others):
         """value_check on 4,096 rows of `fed` (coordinates made far from
@@ -685,7 +764,7 @@ def fq_kernels_vs_plain(dev, launches, build_log):
     wide = (X.repeat(1, 8), Y2.repeat(1, 8), 1)
     log(f"mont_mul_kernel depth=1 m={8 * m} (the shape of the CRS conversion, X|Y at "
         f"n_pad 2^18): kernel {cuda_ms(lambda: fq.mont_mul_cuda(*wide)):.4f} ms (device "
-        f"{kernel_device_ms(fq.mont_mul_cuda, wide):.4f} ms)")
+        f"{kernel_device_ms(fq.mont_mul_cuda, wide, 'mont_mul_kernel'):.4f} ms)")
     records.append(record(
         "mont_mul_kernel", "falcon_r1cs_tpu_torch/csrc/fq_mont.cu",
         "falcon_r1cs_tpu/ops/pallas_fq.py:280", launches["mont_mul_kernel"], err, ms,
@@ -968,7 +1047,7 @@ def main():
             err = max_abs_err(got, want)
             assert err == 0, f"{name} n={p.n} differs from its plain version"
             ms = cuda_ms(lambda: wrapper(x, p))
-            dev_ms = kernel_device_ms(wrapper, (x, p))
+            dev_ms = kernel_device_ms(wrapper, (x, p), name)
             plain_ms = cuda_ms(lambda: wrapper.plain(x, p))
             log(f"{name} n={p.n} B={N_SIGS}: kernel {ms:.4f} ms (device {dev_ms:.4f} "
                 f"ms), plain {plain_ms:.4f} ms, bit-equal (rows of all q - 1, all 0 "

@@ -63,10 +63,10 @@
 #include <cuda_runtime.h>
 
 #include "carry_chain.cuh"  // the PTX carry-chain steps
+#include "div_q.cuh"        // kQ, div_q
 
 namespace {
 
-constexpr u32 kQ = 12289;
 constexpr int kLimbs = 11;      // 16-bit limbs of the quotient hint t
 constexpr int kWords = 6;       // 32-bit words of a coefficient
 constexpr int kPer = 8;         // coefficients a thread owns
@@ -80,18 +80,12 @@ constexpr int kActiveWords[kMaxLogN] = {1, 2, 2, 3, 3, 4, 4, 5, 5, 6};
 
 __host__ __device__ constexpr int active_words(int l) { return kActiveWords[l]; }
 
-// floor(cur / q) = umulhi(cur, kDivMagic) >> kDivShift for every cur <
-// 2^30: kDivMagic = ceil(2^44 / q) and kDivMagic q - 2^44 <= 2^14
-constexpr u32 kDivMagic = 1431539267u;
-constexpr int kDivShift = 12;
 // -q^-1 mod 2^16, the INTT's Montgomery factor
 constexpr u32 kQInv16 = 12287u;
 // bank swizzle: bits 5, 6 and 7 of j flip these bank bits
 constexpr int kSwz5 = 0x02;
 constexpr int kSwz6 = 0x09;
 constexpr int kSwz7 = 0x14;
-
-__device__ __forceinline__ u32 div_q(u32 cur) { return __umulhi(cur, kDivMagic) >> kDivShift; }
 
 // p < 2^30.5 -> p 2^-16 mod q in [0, 2q): m = p (-q^-1) mod 2^16 makes
 // p + m q a multiple of 2^16

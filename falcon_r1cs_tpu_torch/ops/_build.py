@@ -26,10 +26,12 @@ CUDA card.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -53,6 +55,7 @@ _ARGTYPES = {
     "ntt_hints_launch": [_P] * 5 + [_I, _I, _P],
     "intt_ntt_hints_launch": [_P] * 7 + [_I, _I, _P],
     "ntt_semi_launch": [_P, _P, _P, _P, _I, _I, _P],
+    "ntt_semi_hints_launch": [_P] * 5 + [_I, _I, _P],
     "add_one_launch": [_P, _P, _I, _P],
     "schoolbook_prods_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
     "mont_mul_launch": [_P, _P, _P, _I, _I, _P],
@@ -119,6 +122,25 @@ def build() -> tuple[Path, float, str]:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
         os.replace(lib, so)
     return so, time.perf_counter() - t0, log
+
+
+def sass_counts(so: Path) -> dict:
+    """kernel name -> Counter of the SASS opcodes (without modifiers) of a
+    built library, from `cuobjdump -sass` beside nvcc."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and name:
+            counts[name][m.group(2)] += 1
+    return counts
 
 
 def check_launch(rc: int, name: str) -> None:

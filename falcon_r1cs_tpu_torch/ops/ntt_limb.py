@@ -17,7 +17,7 @@ The plain versions of the kernels that compute it:
   parallel carry round per step, is that of the semi-carry kernel (K8,
   ops/ntt_v3.py);
 - `ntt_with_hints`, `ntt_semi` then the exact normalisation and divmod,
-  is that of the hint kernel (K1);
+  is that of the hint kernel (K1) and of K8's hints epilogue;
 - `intt_with_hints` is that of the fused INTT + hint kernel (K2).
 
 The wrappers in ops/cuda_ntt.py and ops/ntt_v3.py take them for CPU

@@ -20,7 +20,8 @@ For each it prints the ptxas lines, then, on rows random but for one of
 all q - 1, one of all 0 and a one-hot one, at (n, B) = (1024, 1024),
 (1024, 512) (the dual-NTT path's) and (512, 1024): bit-equality with the plain
 versions, the median CUDA-event ms a call (20 samples of 5 back-to-back
-calls) and the profiler device ms a launch (20 launches), in the order
+calls) and the profiler device ms a launch (from a window of 20 launches
+that caught all 20; up to three windows, else it raises), in the order
 variants, then variants reversed.  For the committed form it also counts
 the SASS instructions of each kernel by opcode (`cuobjdump -sass`): the
 kernels are fully unrolled, so the count is the instructions a thread
@@ -33,6 +34,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import functools
 import re
 import shutil
 import statistics
@@ -88,19 +90,20 @@ def variants(src: str) -> dict:
     return out
 
 
-def _build_all(root: Path, sources: dict) -> dict:
-    """Compile each variant into its own library, all nvcc processes at
-    once; print the ptxas lines; name -> loaded library."""
-    header = _build._CSRC / "carry_chain.cuh"
+def build_variants(root: Path, filename: str, sources: dict, entries) -> dict:
+    """Compile each variant (name -> text of `csrc/<filename>`) into its own
+    library, all nvcc processes at once, beside a copy of the headers;
+    print the ptxas lines; bind the C `entries`; name -> loaded library."""
     procs = {}
     for name, text in sources.items():
         d = root / name
         d.mkdir(parents=True)
-        (d / "ntt_hints.cu").write_text(text)
-        shutil.copy(header, d / header.name)
+        (d / filename).write_text(text)
+        for header in _build._CSRC.glob("*.cuh"):
+            shutil.copy(header, d / header.name)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "ntt_hints.cu")],
+             str(d / filename)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -111,28 +114,25 @@ def _build_all(root: Path, sources: dict) -> dict:
             if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"{name}: {line.strip()}")
         lib = ctypes.CDLL(str(root / name / "lib.so"))
-        lib.ntt_hints_launch.argtypes = _build._ARGTYPES["ntt_hints_launch"]
-        lib.intt_ntt_hints_launch.argtypes = _build._ARGTYPES["intt_ntt_hints_launch"]
+        for entry in entries:
+            getattr(lib, entry).argtypes = _build._ARGTYPES[entry]
         libs[name] = lib
     return libs
 
 
-def sass_counts(so: Path) -> dict:
-    """kernel name -> Counter of SASS opcodes (without modifiers)."""
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(so)], check=True,
-                          capture_output=True, text=True).stdout
-    counts, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            counts[name] = collections.Counter()
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if m and name:
-            counts[name][m.group(2)] += 1
-    return counts
+def print_sass(so: Path, fragment: str = "ILi10E") -> None:
+    """The SASS opcode counts of each kernel of `so` whose name holds
+    `fragment`: the kernels are fully unrolled, so the count is the
+    instructions a thread issues."""
+    for kernel, ops in _build.sass_counts(so).items():
+        if fragment in kernel:
+            print(f"SASS {kernel}: {sum(ops.values())} instructions; "
+                  + ", ".join(f"{k} {v}" for k, v in ops.most_common()))
+
+
+def card_name() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
 
 
 def _cuda_ms(fn, reps=20, inner=5):
@@ -151,17 +151,45 @@ def _cuda_ms(fn, reps=20, inner=5):
     return statistics.median(times)
 
 
-def _device_ms(fn, calls=20):
+def _device_ms(fn, kernel, calls=20, tries=3):
+    """Profiler device ms a launch of `calls` fn() calls, from a window that
+    caught exactly `calls` launches of one kernel, whose name holds
+    `kernel`.  The profiler can drop rows, so up to `tries` windows are
+    taken; raises if none was whole."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in rows) / 1e3 / calls
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if len(rows) == 1 and kernel in rows[0].key and rows[0].count == calls:
+            return rows[0].self_device_time_total / 1e3 / calls
+    raise RuntimeError(f"{calls} launches of {kernel} expected, the profiler caught "
+                       f"{[(e.key[:60], e.count) for e in rows]}")
+
+
+def in_turns(libs: dict, kinds: dict, check, launch) -> dict:
+    """Each variant, in order, then reversed, and each kind (kind -> a
+    fragment of its kernel's name): `check(lib, kind)` launches once and
+    asserts bit-equality, then `launch(lib, kind)` is timed by CUDA events
+    and profiler device time; (kind, name) -> [(events ms, device ms)]."""
+    res = collections.defaultdict(list)
+    for name in list(libs) + list(libs)[::-1]:
+        for kind, kernel in kinds.items():
+            check(libs[name], kind)
+            run = functools.partial(launch, libs[name], kind)
+            res[kind, name].append((_cuda_ms(run), _device_ms(run, kernel)))
+    return res
+
+
+def print_turns(res: dict, label: str) -> None:
+    for (kind, name), vals in sorted(res.items()):
+        print(f"{label} {kind:5s} {name:18s} bit-equal; "
+              + "; ".join(f"events {e:.4f} ms, device {d:.4f} ms" for e, d in vals))
 
 
 def main():
@@ -170,13 +198,11 @@ def main():
     root = Path(ap.parse_args().out)
     if root.exists():
         shutil.rmtree(root)
-    libs = _build_all(root, variants((_build._CSRC / "ntt_hints.cu").read_text()))
-    for kernel, ops in sass_counts(root / "two_regions" / "lib.so").items():
-        if "ILi10E" in kernel:
-            print(f"SASS {kernel}: {sum(ops.values())} instructions; "
-                  + ", ".join(f"{k} {v}" for k, v in ops.most_common()))
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
+    src = (_build._CSRC / "ntt_hints.cu").read_text()
+    libs = build_variants(root, "ntt_hints.cu", variants(src),
+                          ("ntt_hints_launch", "intt_ntt_hints_launch"))
+    print_sass(root / "two_regions" / "lib.so")
+    print(card_name())
     dev = torch.device("cuda")
     for p, rows in ((FALCON_1024, 1024), (FALCON_1024, 512), (FALCON_512, 1024)):
         x = torch.from_numpy(np.random.default_rng(p.n).integers(0, Q, size=(rows, p.n))
@@ -204,19 +230,15 @@ def main():
                     batch, p.log_n, stream)
             _build.check_launch(rc, kernel)
 
-        res = collections.defaultdict(list)
-        for name in list(libs) + list(libs)[::-1]:
-            for kernel in ("K1", "K2"):
-                t.zero_()
-                launch(libs[name], kernel)
-                torch.cuda.synchronize()
-                got = (t, b) if kernel == "K1" else (t, b, v)
-                assert all(torch.equal(g, w) for g, w in zip(got, want[kernel])), (name, kernel)
-                res[kernel, name].append((_cuda_ms(lambda: launch(libs[name], kernel)),
-                                          _device_ms(lambda: launch(libs[name], kernel))))
-        for (kernel, name), vals in sorted(res.items()):
-            print(f"n={p.n} B={batch} {kernel} {name:18s} bit-equal; "
-                  + "; ".join(f"events {e:.4f} ms, device {d:.4f} ms" for e, d in vals))
+        def check(lib, kernel):
+            t.zero_()
+            launch(lib, kernel)
+            torch.cuda.synchronize()
+            got = (t, b) if kernel == "K1" else (t, b, v)
+            assert all(torch.equal(g, w) for g, w in zip(got, want[kernel])), kernel
+
+        kinds = {"K1": "ntt_hints_kernel", "K2": "intt_ntt_hints_kernel"}
+        print_turns(in_turns(libs, kinds, check, launch), f"n={p.n} B={batch}")
 
 
 if __name__ == "__main__":

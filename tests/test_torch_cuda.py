@@ -85,6 +85,35 @@ def test_semi_kernel_matches_plain(cuda, params):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("params", [FALCON_512, FALCON_1024])
+def test_semi_hints_epilogue_matches_plain_and_k1(cuda, params, monkeypatch):
+    """ntt_with_hints_v3 on a CUDA tensor is one K8 launch (the hints
+    epilogue) and nothing else: no torch normalize or divmod_q, no K1.
+    Its (t, b) equal ntt_with_hints and K1 bit for bit on random rows,
+    rows whose semi state is redundant, all 0, all q - 1 and one-hot, at
+    256 rows and at 1 and 3."""
+    x = _rand((256, params.n), 35, cuda)
+    x[-3], x[-2], x[-1] = 0, Q - 1, 0
+    x[-1, 9] = Q - 1
+    semi = ntt_limb.ntt_semi(x, params)
+    assert ((semi < 0) | (semi > 0xFFFF)).flatten(2).any(2).any(0).any()
+
+    def refuse(*args):
+        raise AssertionError("a CUDA tensor reached the torch normalize or divmod_q")
+
+    monkeypatch.setattr(ntt_v3, "normalize", refuse)
+    monkeypatch.setattr(ntt_v3, "divmod_q", refuse)
+    for rows in (x, x[-1:], x[-3:]):
+        before = (ntt_v3.ntt_semi_cuda.launches, cuda_ntt.ntt_with_hints_cuda.launches)
+        got = ntt_v3.ntt_with_hints_v3(rows, params)
+        assert (ntt_v3.ntt_semi_cuda.launches,
+                cuda_ntt.ntt_with_hints_cuda.launches) == (before[0] + 1, before[1])
+        for g, w, k1 in zip(got, ntt_limb.ntt_with_hints(rows, params),
+                            cuda_ntt.ntt_with_hints_cuda(rows, params)):
+            assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, k1)
+    torch.cuda.synchronize()
+
+
 def test_semi_wrapper_rejects_bad_inputs(cuda):
     good = _rand((2, 512), 33, cuda)
     for bad in (good.long(), good[:, :256].contiguous(),

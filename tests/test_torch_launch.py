@@ -76,6 +76,8 @@ def _wrapper_calls(dev):
         (schoolbook_prods_cuda, "schoolbook_prods_launch",
          lambda: schoolbook_prods_cuda(x, x, n)),
         (ntt_v3.ntt_semi_cuda, "ntt_semi_launch", lambda: ntt_v3.ntt_semi_cuda(x, FALCON_512)),
+        (ntt_v3.ntt_semi_cuda, "ntt_semi_hints_launch",
+         lambda: ntt_v3.ntt_with_hints_v3(x, FALCON_512)),
         (fq.mont_mul_cuda, "mont_mul_launch", lambda: fq.mont_mul_cuda(limbs, limbs, 3)),
         (fq.point_add_cuda, "point_add_launch", lambda: fq.point_add_cuda(jac, jac)),
         (fq.point_add_aff_cuda, "point_add_aff_launch",
@@ -175,3 +177,31 @@ def test_entry_points_published_only_after_self_test(monkeypatch, passes):
                 assert tested == ["add_one_launch"] * attempt
     finally:
         _build.library.cache_clear()
+
+
+def test_sass_counts_parses_a_listing(monkeypatch):
+    """`sass_counts` counts each kernel's opcodes without modifiers,
+    predicated instructions included, from a `cuobjdump -sass` listing."""
+    listing = """
+	code for sm_90a
+		Function : _Z3fooPi
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+        /*0010*/                   LOP3.LUT R2, R0, 0xffff, RZ, 0xc0, !PT ;
+        /*0020*/                   LEA.HI R3, R0, R2, RZ, 0x10 ;
+        /*0030*/              @!P0 IMAD.MOV.U32 R4, RZ, RZ, R3 ;
+        /*0040*/                   EXIT ;
+        /*0050*/                   BRA 0x50;
+		Function : _Z3barPi
+        /*0000*/                   IADD3 R1, R1, R2, R3 ;
+"""
+
+    class Done:
+        stdout = listing
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", lambda cmd, **kw: Done())
+    counts = _build.sass_counts("lib.so")
+    assert dict(counts["_Z3fooPi"]) == {"LDC": 1, "LOP3": 1, "LEA": 1, "IMAD": 1,
+                                        "EXIT": 1, "BRA": 1}
+    assert dict(counts["_Z3barPi"]) == {"IADD3": 1}

@@ -31,7 +31,9 @@ from falcon_r1cs_tpu_torch.ops import cuda_ntt, ntt_limb
 from falcon_r1cs_tpu_torch.ops.limbs import LIMB_BITS, NUM_LIMBS
 
 M32 = 0xFFFFFFFF
-SRC = (Path(cuda_ntt.__file__).resolve().parents[1] / "csrc" / "ntt_hints.cu").read_text()
+CSRC = Path(cuda_ntt.__file__).resolve().parents[1] / "csrc"
+# the kernels' source and the divmod they share with K8
+SRC = (CSRC / "ntt_hints.cu").read_text() + (CSRC / "div_q.cuh").read_text()
 
 
 def _const(name):
