@@ -17,7 +17,14 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
 - the semi-carry hint path: `ntt_with_hints_v3` on 1024 rows of
   Falcon-1024 coefficients, one launch of the semi-carry kernel (its
   hints epilogue, which normalises and divides by q in registers), its
-  (t, b) equal to the hint kernel's on the same rows.
+  (t, b) equal to the hint kernel's on the same rows;
+- device verify: `falcon.verify_batch` on the main path's 1024
+  signatures with three rows tampered, its verdicts equal to its CPU run;
+- the user entry points: `python -m falcon_r1cs_tpu_torch` in-process
+  (`selftest`, `verify 1024`, `aggregate --n 1024 --k 1024`, `pok-sig
+  1024 --g1-backend gpu`, `aggregate --n 1024 --k 8 --prove 2
+  --g1-backend gpu`), each exit code 0, aggregate and pok-sig launching
+  K1 and the two gpu proofs K4, K5 and K6; and `entry()`'s step.
 
 It builds the kernels from csrc/, checks that each path launched its
 kernels (counts set to 0 just before the path, read just after), holds
@@ -42,6 +49,8 @@ the device; the line before it is the card's name and power limit, and
 the line before that the per-kernel JSON record.
 """
 
+import contextlib
+import io
 import json
 import re
 import statistics
@@ -62,6 +71,10 @@ N_SB_TRACE = 1
 N_SB_SAT = 4
 M_FQ = 1 << 16         # points per Fq kernel launch in the kernel-vs-plain phase
 TIMING_REPS = 20
+# the CLI phase's commands, run in-process on the card (the default device)
+CLI_COMMANDS = (["selftest"], ["verify", "1024"], ["aggregate", "--n", "1024", "--k", "1024"],
+                ["pok-sig", "1024", "--g1-backend", "gpu"],
+                ["aggregate", "--n", "1024", "--k", "8", "--prove", "2", "--g1-backend", "gpu"])
 
 # NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3; 67 TFLOP/s fp32 outside the
 # tensor cores = 132 SMs x 128 fp32 lanes x 2 x 1.98 GHz.  An SM has 64 int32
@@ -378,8 +391,9 @@ def k5_per_group(n_pad: int, window: int) -> int:
 
 def device_kernel_ms(fn, keep=("point_add",)):
     """(wall ms, device ms of all CUDA kernels, the top 8 kernels and any
-    other whose name holds one of `keep`) of one fn() run under
-    torch.profiler; device time sums the CUDA rows only."""
+    other whose name holds one of `keep`, the count of all kernel
+    launches) of one fn() run under torch.profiler; device time sums the
+    CUDA rows only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -398,7 +412,8 @@ def device_kernel_ms(fn, keep=("point_add",)):
     rows.sort(key=us, reverse=True)
     busy = sum(us(e) for e in rows) / 1e3
     shown = rows[:8] + [e for e in rows[8:] if any(k in e.key for k in keep)]
-    return wall, busy, [(e.key[:60], us(e) / 1e3, e.count) for e in shown]
+    return (wall, busy, [(e.key[:60], us(e) / 1e3, e.count) for e in shown],
+            sum(e.count for e in rows))
 
 
 def groth16_path(port, dev, compiled, packed, instance, counted):
@@ -502,7 +517,7 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
     gpu_msm._fold_windows_host(ws, nw, 1, gpu_msm.WINDOW)
     fold_s = time.perf_counter() - t0
     sums_ms = cuda_ms(sums, reps=3, inner=1, warmup=1)
-    wall, busy, top = device_kernel_ms(sums)
+    wall, busy, top, _ = device_kernel_ms(sums)
     # the idle share against the unprofiled CUDA-event time: the profiler
     # slows the host's launches, so its own wall time overstates idling
     log(f"MSM h: host recode {recode_s * 1e3:.1f} ms, device window sums "
@@ -534,6 +549,107 @@ def semi_path(dev, counted):
     log(f"semi-carry path n={p.n} B={N_SIGS}: {seconds:.3f} s (first call); launches "
         f"{launches}; (t, b) == the hint kernel's")
     return launches
+
+
+def verify_phase(port, dev, insts, counted, card):
+    """Device verify at Falcon-1024, B = N_SIGS, on the smoke's signatures
+    with three rows tampered: a changed message (row 1), s2 past the norm
+    bound (row 2), a coefficient |s2| > q/2 of the same residue (row 3,
+    which verify_batch re-signs after % q, so it stays valid).  The card's
+    verdicts equal verify_batch(device="cpu") row for row, all True on the
+    untouched rows; no kernel of the port is launched (a chain of torch
+    ops, as the JAX package's is of jnp ops).  Times: host hash-to-point,
+    the device check alone (CUDA events) and its kernels under the
+    profiler, the whole call; medians of 7 samples each."""
+    from falcon_r1cs_tpu_torch.falcon import hash_to_point_batch, verify_batch
+    from falcon_r1cs_tpu_torch.falcon.instances import _verify_cached
+
+    params = port.FALCON_1024
+    n, B = params.n, N_SIGS
+    h = np.stack([i.h for i in insts[:B]])
+    s2 = np.stack([i.sig_signed for i in insts[:B]])
+    msgs = [i.msg for i in insts[:B]]
+    nonces = [i.nonce for i in insts[:B]]
+    msgs[1] = b"tampered"
+    s2[2] = 4000
+    s2[3, 0] += port.Q
+    assert not port.falcon.verify(h[3], msgs[3], nonces[3], s2[3], params)
+
+    def call():
+        return verify_batch(h, msgs, nonces, s2, params, device=dev)
+
+    got, first_s, launches = counted_run(counted, call)
+    assert launches == dict.fromkeys(counted, 0), launches
+    want = verify_batch(h, msgs, nonces, s2, params, device="cpu")
+    assert got.tolist() == want.tolist(), "verify_batch: the card != the CPU"
+    assert [r for r in range(B) if not got[r]] == [1, 2], np.flatnonzero(~got)
+
+    def host_ms(fn, reps=7):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    h2p_ms = host_ms(lambda: hash_to_point_batch(msgs, nonces, n))
+    call_ms = host_ms(call)
+    check = _verify_cached(n, params.sig_l2_bound)
+    hm = hash_to_point_batch(msgs, nonces, n)
+    args = tuple(torch.from_numpy(a).to(dev) for a in (s2, h, hm))
+    assert check(*args).cpu().numpy().tolist() == got.tolist()
+    dev_ms = cuda_ms(lambda: check(*args), reps=7, inner=5)
+    wall, busy, top, kernels = device_kernel_ms(lambda: check(*args), keep=())
+    log(f"verify_batch n={n} B={B}: the card's verdicts == the CPU's, untouched rows "
+        f"all True, rows 1 (message) and 2 (norm) False, row 3 (|s2| > q/2, same "
+        f"residue) True; launches {launches}")
+    log(f"verify_batch times: host hash-to-point {h2p_ms:.3f} ms, device check "
+        f"{dev_ms:.4f} ms (CUDA events; {busy:.4f} ms of {kernels} kernel launches under "
+        f"the profiler, idle share {1 - busy / dev_ms:.3f}), whole call "
+        f"{call_ms:.3f} ms = {B / call_ms * 1e3:.1f} signatures/s ({B / dev_ms * 1e3:.1f} "
+        f"device-only); first call {first_s:.3f} s; {card}")
+    for key, ms, count in top:
+        log(f"  {ms:9.4f} ms  x{count:<5d} {key}")
+
+
+def cli_phase(dev, counted):
+    """`python -m falcon_r1cs_tpu_torch` in-process on the card, one
+    command after another (CLI_COMMANDS), every count set to 0 just before
+    each and read just after: each returns 0; aggregate and pok-sig launch
+    K1, and a command with its G1 MSMs on the card (`--g1-backend gpu`:
+    pok-sig's prove, aggregate's prove_batch) K4, K5 and K6.  Then
+    entry(): its step on the card launches K1 twice and equals
+    entry("cpu").  Returns {command: (seconds, launches)}."""
+    from falcon_r1cs_tpu_torch.__main__ import main as cli
+    from falcon_r1cs_tpu_torch.entry import entry
+
+    runs = {}
+    for argv in CLI_COMMANDS:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc, seconds, launches = counted_run(counted, lambda: cli(argv))
+        cmd = " ".join(argv)
+        for line in printed.getvalue().splitlines():
+            log(f"  | {line[:160]}" + (" ..." if len(line) > 160 else ""))
+        assert rc == 0, f"{cmd}: exit code {rc}"
+        runs[cmd] = (seconds, {k: v for k, v in launches.items() if v})
+        log(f"cli {cmd}: rc 0, {seconds:.1f} s, launches {runs[cmd][1]}")
+        if argv[0] in ("aggregate", "pok-sig"):
+            assert runs[cmd][1].get("ntt_hints_kernel", 0) > 0, (cmd, runs[cmd])
+        if "gpu" in argv:
+            assert all(runs[cmd][1].get(k, 0) > 0 for k in (
+                "mont_mul_kernel", "point_add_kernel", "point_add_aff_kernel")), (cmd, runs[cmd])
+    step, args = entry(dev)
+    got, seconds, launches = counted_run(counted, lambda: step(*args))
+    assert launches == dict.fromkeys(counted, 0) | {"ntt_hints_kernel": 2}, launches
+    cpu_step, cpu_args = entry("cpu")
+    for a, b in zip(got, cpu_step(*cpu_args)):
+        assert torch.equal(a.cpu(), b), "entry(): the card != the CPU"
+    log(f"entry(): step on (8, 1024) {seconds:.3f} s (first call), launches "
+        f"{ {k: v for k, v in launches.items() if v} }, == entry('cpu')")
+    return runs
 
 
 def semi_kernel_vs_plain(dev, launches, build_log):
@@ -570,7 +686,7 @@ def semi_kernel_vs_plain(dev, launches, build_log):
                             cuda_ntt.ntt_with_hints_cuda(x, p)):
             assert torch.equal(a, c) and torch.equal(a, k1), \
                 f"ntt_with_hints_v3 n={p.n} != ntt_with_hints or K1"
-        _, _, kernels = device_kernel_ms(lambda: entry(x, p), keep=())
+        _, _, kernels, _ = device_kernel_ms(lambda: entry(x, p), keep=())
         assert [c for _, _, c in kernels] == [1] and "ntt_semi_kernel" in kernels[0][0], \
             f"one entry call ran {kernels}, not one K8 kernel"
         ms = cuda_ms(lambda: wrapper(x, p))
@@ -672,7 +788,7 @@ def kernel_device_ms(wrapper, args, kernel, calls=10, tries=3):
     time of back-to-back wrapper calls is the longer of this and the
     wrapper's host cost a call."""
     for _ in range(tries):
-        _, busy, rows = device_kernel_ms(lambda: [wrapper(*args) for _ in range(calls)],
+        _, busy, rows, _ = device_kernel_ms(lambda: [wrapper(*args) for _ in range(calls)],
                                          keep=(kernel,))
         caught = sum(c for key, _, c in rows if kernel in key)
         if caught == calls:
@@ -938,6 +1054,7 @@ def main():
     log(f"made {N_SIGS} wire-format instances: {time.perf_counter() - t0:.1f} s")
 
     # -- 3. the main path: counts reset just before, read just after ------
+    t_phase = time.perf_counter()
     counted = {
         "ntt_hints_kernel": cuda_ntt.ntt_with_hints_cuda,
         "intt_ntt_hints_kernel": cuda_ntt.intt_ntt_hints_cuda,
@@ -1019,10 +1136,21 @@ def main():
         mont_mul_kernel=fq.mont_mul_cuda, point_add_kernel=fq.point_add_cuda,
         point_add_aff_kernel=fq.point_add_aff_cuda, ntt_semi_kernel=ntt_v3.ntt_semi_cuda,
     )
-    dual_path(port, dev, insts, path_counted)
-    sb_launches = schoolbook_path(port, dev, insts, path_counted)
-    g16_launches = groth16_path(port, dev, compiled, packed, instance, path_counted)
-    semi_launches = semi_path(dev, path_counted)
+    log(f"phase main path: {time.perf_counter() - t_phase:.1f} s")
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        return result
+
+    phase("dual-NTT path", dual_path, port, dev, insts, path_counted)
+    sb_launches = phase("schoolbook path", schoolbook_path, port, dev, insts, path_counted)
+    g16_launches = phase("groth16", groth16_path, port, dev, compiled, packed, instance,
+                         path_counted)
+    semi_launches = phase("semi-carry path", semi_path, dev, path_counted)
+    del out_f
+    t_phase = time.perf_counter()
 
     # -- 5. each kernel against its plain version, on the card -------------
     records = []
@@ -1131,6 +1259,14 @@ def main():
     eng_ms = cuda_ms(lambda: engine(sig, out.pk_ntt, out.hm_ntt), reps=5, inner=2)
     log(f"device engine {eng_ms:.3f} ms + packer = {dev_ms:.3f} ms per "
         f"{N_SIGS}-batch = {N_SIGS / dev_ms * 1e3:.1f} witnesses/s device-only")
+
+    log(f"phase kernels vs plain: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 6. device verify and the user entry points ------------------------
+    # after the kernels' timing windows: a profiler window of this phase
+    # holds ~700 launches, and the kernels' windows must catch every launch
+    phase("device verify", verify_phase, port, dev, insts, path_counted, card)
+    phase("cli", cli_phase, dev, path_counted)
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "falcon_r1cs_tpu")]
     assert not loaded, f"the port loaded JAX or the JAX package: {loaded}"

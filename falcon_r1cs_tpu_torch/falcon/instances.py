@@ -17,23 +17,27 @@ This module provides:
   h := (hm - v) * sig^{-1} in the NTT domain.  The resulting tuple satisfies
   the exact verification statement, so the circuits cannot distinguish it
   from a real Falcon signature; no secret key is needed -- the fast path
-  for bulk benchmarks.  Real NTRU keygen + signing live in the JAX
-  package's keygen.py / sign.py (not part of the port);
-  `instance_from_signature` bridges real signatures into the circuit layer.
-
-The host half of `falcon_r1cs_tpu/falcon/instances.py`; its batched device
-verify (`verify_batch`) is not ported yet.
+  for bulk benchmarks.  Real NTRU keygen + signing live in keygen.py /
+  sign.py; `instance_from_signature` bridges real signatures into the
+  circuit layer.
+- `verify_batch`: batched verification on the device, hash-to-point on
+  the host (the counterpart of the JAX package's `verify_batch`, whose
+  device check is a jitted chain of jnp ops; here a chain of torch ops).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from ..ops.modq import mul_mod_q, sub_mod_q
 from ..params import FalconParams, Q
-from .hash_to_point import NONCE_LEN, hash_to_point
-from .ntt import intt, ntt
+from ..utils.device import entry_device
+from .hash_to_point import NONCE_LEN, hash_to_point, hash_to_point_batch
+from .ntt import intt, intt_torch, ntt, ntt_torch
 from .poly import _HALF
 
 # Falcon's signing sigma is ~165.7 for n=512 / ~168.4 for n=1024; sampling at
@@ -83,6 +87,62 @@ def verify(
         np.sum(v_signed**2)
     )
     return norm < params.sig_l2_bound
+
+
+def verify_batch(
+    h: np.ndarray,
+    msgs: list[bytes],
+    nonces: list[bytes],
+    sig_signed: np.ndarray,
+    params: FalconParams,
+    device="cuda",
+) -> np.ndarray:
+    """Batched Falcon verification on `device`: hash-to-point on the host
+    (native C when built), then one chain of torch ops over the whole batch
+    (`_verify_cached`).
+
+    h: (B, n) or (n,) public keys; sig_signed: (B, n) signed s2.  Returns a
+    (B,) numpy bool array, as the JAX package's `verify_batch` does, with
+    its verdicts: a coefficient of s2 is reduced mod q and re-signed around
+    q/2 before it is squared (the clear `verify` squares it as given).
+    """
+    dev = entry_device(device)
+    n = params.n
+    sig_signed = np.atleast_2d(np.asarray(sig_signed, dtype=np.int64))
+    B = sig_signed.shape[0]
+    h2 = np.atleast_2d(np.asarray(h, dtype=np.int64))
+    hm = hash_to_point_batch(msgs, nonces, n)
+    check = _verify_cached(n, int(params.sig_l2_bound))
+    ok = check(
+        torch.from_numpy(sig_signed).to(dev),
+        torch.from_numpy(h2).to(dev).expand(B, n),
+        torch.from_numpy(hm).to(dev),
+    )
+    return ok.cpu().numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _verify_cached(n: int, bound: int):
+    """The device check of `verify_batch` for one (n, bound): (s2, h, hm)
+    integer tensors of shape (B, n) on one device, s2 and h any integers
+    (reduced mod q here), hm in [0, q) -> (B,) bool.  The NTT tables are
+    cached per device (falcon/ntt.py).
+
+    The JAX package splits the norm into 16-bit halves because the TPU has
+    no int64; the squares sum here in int64, which is exact (2n squares
+    below 2^26 each), and the test is the same `norm < bound`."""
+
+    def check(s2, h, hm):
+        s2 = (s2 % Q).to(torch.int32)
+        h = (h % Q).to(torch.int32)
+        prod = mul_mod_q(ntt_torch(s2, n), ntt_torch(h, n))
+        v = sub_mod_q(hm.to(torch.int32), intt_torch(prod, n))
+        v_signed = torch.where(v < _HALF, v, v - Q).to(torch.int64)
+        s2_signed = torch.where(s2 < _HALF, s2, s2 - Q).to(torch.int64)
+        norm = (v_signed * v_signed).sum(-1) + (s2_signed * s2_signed).sum(-1)
+        return norm < bound
+
+    return check
 
 
 def _sample_small(rng: np.random.Generator, n: int) -> np.ndarray:

@@ -322,7 +322,8 @@ def _assemble(pk: ProvingKey, native, ga, gb1, gb2, gc_l, gc_h, r: int,
 
 
 def prove_batch(pk: ProvingKey, compiled, assignments, rs=None, ss=None,
-                use_native: bool = True) -> list:
+                use_native: bool = True, g1_backend: str = "auto",
+                msm_device="cuda") -> list:
     """K proofs over ONE proving key — the falcon-aggregate-sig batch
     shape (`falcon-aggregate-sig/src/main.rs:1-3` is the
     reference's stub for exactly this intent; the witness side is
@@ -336,7 +337,11 @@ def prove_batch(pk: ProvingKey, compiled, assignments, rs=None, ss=None,
 
     assignments: list of K wire vectors (each an int sequence or an
     (N, 4) u64 canonical limb matrix).  rs/ss override blinding
-    randomness for deterministic tests.  Returns a list of K Proofs.
+    randomness for deterministic tests.  g1_backend is prove's: with the
+    native C built, "auto" and "native" run the batched multi-MSMs (prove's
+    "auto" picks the C whenever it is built); any other backend, or no C,
+    proves each assignment with `prove` (G1 MSMs on that backend, "gpu"
+    on `msm_device`).  Returns a list of K Proofs.
     """
     import numpy as _np
 
@@ -346,9 +351,10 @@ def prove_batch(pk: ProvingKey, compiled, assignments, rs=None, ss=None,
         rs = [secrets.randbelow(R) for _ in range(K)]
     if ss is None:
         ss = [secrets.randbelow(R) for _ in range(K)]
-    if native is None:
+    if native is None or g1_backend not in ("auto", "native"):
         return [
-            prove(pk, compiled, a, r=rs[k], s=ss[k], use_native=False)
+            prove(pk, compiled, a, r=rs[k], s=ss[k], use_native=use_native,
+                  g1_backend=g1_backend, msm_device=msm_device)
             for k, a in enumerate(assignments)
         ]
 

@@ -1,5 +1,14 @@
-"""Runtime configuration of the port."""
+"""Auxiliary layer of the port: runtime config, per-section constraint
+counters, and the entry points' device check."""
 
 from .config import RuntimeConfig
+from .counters import CounterLog, SectionDelta
+from .device import DeviceUnavailableError, entry_device
 
-__all__ = ["RuntimeConfig"]
+__all__ = [
+    "CounterLog",
+    "DeviceUnavailableError",
+    "RuntimeConfig",
+    "SectionDelta",
+    "entry_device",
+]

@@ -10,13 +10,14 @@ from .engine_schoolbook import (
     witness_engine_schoolbook,
 )
 from .export_device import packer_dual, packer_ntt, packer_schoolbook
-from .layout import bound_width, interleave_witness, num_witness
+from .layout import bound_width, export_witness_limbs, interleave_witness, num_witness
 
 __all__ = [
     "CircuitWitness",
     "WitnessBatch",
     "bound_width",
     "circuit_witness",
+    "export_witness_limbs",
     "generate_witness_dual",
     "generate_witness_ntt",
     "generate_witness_schoolbook",

@@ -1,5 +1,6 @@
 """Witness layout: interleaving the engine's compact segments into the
-canonical flat witness vector (arkworks allocation order), on the host.
+canonical flat witness vector (arkworks allocation order), on the host,
+and its dense limb export.
 
 The counterpart of `falcon_r1cs_tpu/witness/layout.py`, rebased on the
 port's ops/limbs.py.  Segments may be torch tensors (any device) or numpy
@@ -66,4 +67,19 @@ def interleave_witness(seg: dict, params: FalconParams) -> np.ndarray:
     ]
     out = np.concatenate([p.reshape(B, -1) for p in parts], axis=1)
     assert out.shape == (B, num_witness(params))
+    return out
+
+
+def export_witness_limbs(seg: dict, params: FalconParams) -> np.ndarray:
+    """Canonical dense export: (B, num_witness, 5) uint32 little-endian
+    32-bit limbs of the interleaved witness (every value is below 2^160;
+    the ~255-bit field embedding pads with zero limbs).  The split runs
+    limb by limb over the whole object array, not value by value."""
+    rest = interleave_witness(seg, params)
+    out = np.empty(rest.shape + (5,), dtype=np.uint32)
+    for k in range(5):
+        out[..., k] = (rest & 0xFFFFFFFF).astype(np.uint32)
+        rest = rest >> 32
+    if (rest != 0).any():
+        raise ValueError("a witness value is negative or not below 2^160")
     return out
