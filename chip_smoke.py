@@ -24,7 +24,13 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
   (`selftest`, `verify 1024`, `aggregate --n 1024 --k 1024`, `pok-sig
   1024 --g1-backend gpu`, `aggregate --n 1024 --k 8 --prove 2
   --g1-backend gpu`), each exit code 0, aggregate and pok-sig launching
-  K1 and the two gpu proofs K4, K5 and K6; and `entry()`'s step.
+  K1 and the two gpu proofs K4, K5 and K6; and `entry()`'s step;
+- the parallel layer at world size 1 over NCCL, in-process: the DP,
+  dual and schoolbook sharded engines on the main, dual and schoolbook
+  batches, gathered equal to the single-device engines (K1 2 and 4, K3
+  1); the sharded CRT check; the sharded MSM over the h query (K4, K5,
+  K6); ntt_sharded at D = 1; `dryrun_multichip(1)` in a spawned rank;
+  `scaling_sweep`'s one point.
 
 It builds the kernels from csrc/, checks that each path launched its
 kernels (counts set to 0 just before the path, read just after), holds
@@ -389,6 +395,20 @@ def k5_per_group(n_pad: int, window: int) -> int:
     return levels + (cl.bit_length() - 1) + (ch.bit_length() - 1) + scan(ch) + scan(cl)
 
 
+def msm_launches(counted, n: int) -> dict:
+    """The launches of one MSM over n cached points at the default window
+    (+1 K4 when the point set is new): K6 once and K5 k5_per_group times
+    a window group."""
+    from falcon_r1cs_tpu_torch.snark import gpu_msm
+
+    nw = (255 + gpu_msm.WINDOW - 1) // gpu_msm.WINDOW
+    n_pad = max(8, 1 << (n - 1).bit_length())  # 2^18 at Falcon-1024
+    groups = nw // gpu_msm._group_windows(n_pad, nw)
+    return dict.fromkeys(counted, 0) | {
+        "point_add_aff_kernel": groups,
+        "point_add_kernel": groups * k5_per_group(n_pad, gpu_msm.WINDOW)}
+
+
 def device_kernel_ms(fn, keep=("point_add",)):
     """(wall ms, device ms of all CUDA kernels, the top 8 kernels and any
     other whose name holds one of `keep`, the count of all kernel
@@ -422,7 +442,8 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
     prove(g1_backend="gpu") identical to prove(g1_backend="native") with
     the same r and s, verify True and False on a tampered proof or input;
     then each of the four G1 MSMs against the native C MSM, cold (with the
-    K4 conversion) and warm.  Returns the prove run's launch counts."""
+    K4 conversion) and warm.  Returns the prove run's launch counts and the
+    h query's MSM (points, scalars)."""
     from falcon_r1cs_tpu_torch.snark import gpu_msm, groth16, native_backend
     from falcon_r1cs_tpu_torch.snark.bls12_381 import R
     from falcon_r1cs_tpu_torch.snark.points import ints_to_limbs, packed_to_limb_rows
@@ -463,15 +484,7 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
             ("l", pk.l_query, z[ni:]), ("h", pk.h_query, h)]
     nw = (255 + gpu_msm.WINDOW - 1) // gpu_msm.WINDOW
 
-    def per_msm(pts):
-        """Launches of one MSM over a cached point set (+1 K4 when new)."""
-        n_pad = max(8, 1 << (len(pts) - 1).bit_length())  # 2^18 at Falcon-1024
-        groups = nw // gpu_msm._group_windows(n_pad, nw)
-        return dict.fromkeys(counted, 0) | {
-            "point_add_aff_kernel": groups,
-            "point_add_kernel": groups * k5_per_group(n_pad, gpu_msm.WINDOW)}
-
-    expect = {k: sum(per_msm(p)[k] for _, p, _ in msms) for k in counted}
+    expect = {k: sum(msm_launches(counted, len(p))[k] for _, p, _ in msms) for k in counted}
     expect["mont_mul_kernel"] = len(msms)  # each new point set converts once
     assert launches == expect, (launches, expect)
     log(f"groth16 prove, g1_backend=gpu: {gpu_s:.3f} s (first, incl. the CRS "
@@ -490,7 +503,7 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
         got, cold_s, d_cold = counted_run(counted, lambda: gpu_msm.g1_msm_gpu(pts, sc))
         got2, warm_s, d_warm = counted_run(counted, lambda: gpu_msm.g1_msm_gpu(pts, sc))
         assert got == want and got2 == want, f"MSM {name} != native"
-        assert d_warm == per_msm(pts), d_warm
+        assert d_warm == msm_launches(counted, len(pts)), d_warm
         assert d_cold == d_warm | {"mont_mul_kernel": 1}, d_cold
         log(f"G1 MSM {name} n={len(pts)}: gpu cold {cold_s:.3f} s, "
             f"warm {warm_s:.3f} s; native C {nat_s:.3f} s; equal")
@@ -526,7 +539,7 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
         f"{wall:.1f} ms wall under the profiler)")
     for key, ms, count in top:
         log(f"  {ms:9.3f} ms  x{count:<5d} {key}")
-    return launches
+    return launches, (pk.h_query, h)
 
 
 def semi_path(dev, counted):
@@ -650,6 +663,131 @@ def cli_phase(dev, counted):
     log(f"entry(): step on (8, 1024) {seconds:.3f} s (first call), launches "
         f"{ {k: v for k, v in launches.items() if v} }, == entry('cpu')")
     return runs
+
+
+def parallel_phase(port, dev, insts, out, rs, instance, packed, h_msm, counted):
+    """The parallel layer at world size 1 on the card, over NCCL, in this
+    process (make_mesh(1, 1, "cuda")), at full size, every count set to 0
+    just before each sharded call and read just after: the DP engine on
+    the main batch (K1 2), the dual engine at B = N_DUAL (K1 4), the
+    schoolbook engine at B = N_SB (K3 1), each gathered equal to its
+    single-device engine on every key; the sharded CRT check on N_SAT
+    signatures, all True and False exactly where bumped; the sharded MSM
+    over the h query (2^18 points, window 12) equal to g1_msm_gpu and the
+    native C (K4 1 cold, K6 2, K5 100); ntt_sharded at D = 1 equal to the
+    clear NTT; dryrun_multichip(1), a spawned rank over NCCL; and
+    scaling_sweep's one point.  Returns {path: launches} of the sharded
+    calls."""
+    import torch.distributed as dist
+
+    from falcon_r1cs_tpu_torch.entry import dryrun_multichip
+    from falcon_r1cs_tpu_torch.falcon import ntt, ntt_torch
+    from falcon_r1cs_tpu_torch.parallel import (
+        gather_segments,
+        make_mesh,
+        ntt_sharded,
+        place_batch,
+        scaling_sweep,
+        sharded_engine,
+        sharded_engine_dual,
+        sharded_engine_schoolbook,
+    )
+    from falcon_r1cs_tpu_torch.snark import gpu_msm, native_backend
+    from falcon_r1cs_tpu_torch.witness import (
+        witness_engine,
+        witness_engine_dual,
+        witness_engine_schoolbook,
+    )
+
+    n = 1024
+    mesh = make_mesh(1, 1, "cuda")
+    log(f"parallel: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, backend "
+        f"{dist.get_backend()}, world size {dist.get_world_size()}, mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    sharded = {}
+
+    def engine_case(path, make, single, arrays, kernel, launches):
+        """The sharded engine's gathered segments == the single-device
+        engine's on every key; its launches; both CUDA-event times."""
+        blocks = place_batch(mesh, *arrays)
+        run = make(n, mesh)
+        got, seconds, counts = counted_run(counted, lambda: gather_segments(mesh, run(*blocks)))
+        assert counts == dict.fromkeys(counted, 0) | {kernel: launches}, (path, counts)
+        want = single(n)(*blocks)
+        assert sorted(got) == sorted(want), (path, sorted(got))
+        for k in want:
+            assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), (path, k)
+        sharded_ms = cuda_ms(lambda: gather_segments(mesh, run(*blocks)), reps=5, inner=2)
+        single_ms = cuda_ms(lambda: single(n)(*blocks), reps=5, inner=2)
+        # at world size 1 each all_gather is NCCL's copy of one segment
+        mb = sum(t.numel() * t.element_size() for t in got.values()) / 1e6
+        extra = sharded_ms - single_ms
+        rate = f"{mb / extra:.1f} GB/s of the difference" if extra > 0 else "no difference"
+        log(f"parallel {path} engine B={blocks[0].shape[0]}: gathered == single-device on "
+            f"{len(want)} segments; launches {kernel} {launches}; {sharded_ms:.3f} ms "
+            f"sharded + gather against {single_ms:.3f} ms single-device (CUDA events): "
+            f"{mb:.1f} MB gathered, {rate}; first call {seconds:.3f} s")
+        sharded[path] = {kernel: launches}
+
+    sig = np.stack([i.sig_lifted for i in insts[:N_SIGS]])
+    engine_case("dp", sharded_engine, witness_engine, (sig, out.pk_ntt, out.hm_ntt),
+                "ntt_hints_kernel", 2)
+    dual = insts[:N_DUAL]
+    engine_case("dual", sharded_engine_dual, witness_engine_dual,
+                (np.stack([i.sig_signed for i in dual]),
+                 ntt_torch(upload([i.h for i in dual], dev), n),
+                 ntt_torch(upload([i.hm for i in dual], dev), n)),
+                "ntt_hints_kernel", 4)
+    sb = insts[:N_SB]
+    engine_case("schoolbook", sharded_engine_schoolbook, witness_engine_schoolbook,
+                tuple(np.stack([getattr(i, k) for i in sb]) for k in ("sig_lifted", "h", "hm")),
+                "schoolbook_prods_kernel", 1)
+
+    w_res = rs.witness_residues_from_packed(instance[:N_SAT], packed[:N_SAT])
+    bad = packed[:N_SAT].clone()
+    bad[5, 3, 0] += 1
+    t0 = time.perf_counter()
+    ok = rs.check_device_sharded(w_res, mesh, "batch").cpu()
+    sat_s = time.perf_counter() - t0
+    assert ok.tolist() == [True] * N_SAT, ok
+    assert torch.equal(ok, rs.check_device(w_res).cpu())
+    verdict = rs.check_device_sharded(
+        rs.witness_residues_from_packed(instance[:N_SAT], bad), mesh, "batch").cpu()
+    assert [b for b in range(N_SAT) if not verdict[b]] == [5], verdict
+    log(f"parallel CRT check, rows split over 1 rank: {N_SAT} valid -> all True "
+        f"({sat_s:.3f} s, partition and upload included), one bumped witness -> "
+        "exactly that signature False")
+
+    pts, sc = h_msm
+    warm = msm_launches(counted, len(pts))
+    got, cold_s, cold = counted_run(
+        counted, lambda: gpu_msm.g1_msm_gpu_sharded(pts, sc, gpu_msm.WINDOW, mesh))
+    got2, warm_s, counts = counted_run(
+        counted, lambda: gpu_msm.g1_msm_gpu_sharded(pts, sc, gpu_msm.WINDOW, mesh))
+    assert cold == warm | {"mont_mul_kernel": 1} and counts == warm, (cold, counts)
+    one, one_s, _ = counted_run(counted, lambda: gpu_msm.g1_msm_gpu(pts, sc))
+    want = native_backend.g1_msm(pts, sc)
+    assert got == want and got2 == want and one == want, "sharded MSM != native C"
+    sharded["msm"] = {k: v for k, v in cold.items() if v}
+    log(f"parallel MSM h n={len(pts)} (1 shard): sharded cold {cold_s:.3f} s, "
+        f"warm {warm_s:.3f} s against g1_msm_gpu warm {one_s:.3f} s (host clock, one "
+        f"sample each); == g1_msm_gpu == native C; launches cold {sharded['msm']}")
+
+    x = np.random.default_rng(20261021).integers(0, port.Q, size=(N_SIGS, n)).astype(np.int32)
+    got = ntt_sharded(mesh, port.FALCON_1024)(torch.from_numpy(x).to(dev))
+    assert np.array_equal(got.cpu().numpy(), ntt(x)), "ntt_sharded at D = 1 != the clear NTT"
+    log(f"parallel ntt_sharded D=1 B={N_SIGS}: == the clear NTT")
+
+    t0 = time.perf_counter()
+    checked = dryrun_multichip(1)
+    log(f"parallel dryrun_multichip(1), one spawned rank over NCCL: {checked} passed "
+        f"({time.perf_counter() - t0:.1f} s)")
+    pts_sweep = scaling_sweep(n, N_SIGS)
+    assert [p.devices for p in pts_sweep] == [1], pts_sweep
+    log(f"parallel scaling_sweep({n}, {N_SIGS}): {pts_sweep[0].witnesses_per_sec:.1f} "
+        f"witnesses/s device-only engine, 1 rank (no scaling figure: one card)")
+    dist.destroy_process_group()
+    return sharded
 
 
 def semi_kernel_vs_plain(dev, launches, build_log):
@@ -1146,8 +1284,8 @@ def main():
 
     phase("dual-NTT path", dual_path, port, dev, insts, path_counted)
     sb_launches = phase("schoolbook path", schoolbook_path, port, dev, insts, path_counted)
-    g16_launches = phase("groth16", groth16_path, port, dev, compiled, packed, instance,
-                         path_counted)
+    g16_launches, h_msm = phase("groth16", groth16_path, port, dev, compiled, packed,
+                                instance, path_counted)
     semi_launches = phase("semi-carry path", semi_path, dev, path_counted)
     del out_f
     t_phase = time.perf_counter()
@@ -1267,6 +1405,11 @@ def main():
     # holds ~700 launches, and the kernels' windows must catch every launch
     phase("device verify", verify_phase, port, dev, insts, path_counted, card)
     phase("cli", cli_phase, dev, path_counted)
+    sharded = phase("parallel", parallel_phase, port, dev, insts, out, rs, instance, packed,
+                    h_msm, path_counted)
+    for rec in records:
+        rec["sharded_launches"] = {path: counts[rec["name"]]
+                                   for path, counts in sharded.items() if rec["name"] in counts}
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "falcon_r1cs_tpu")]
     assert not loaded, f"the port loaded JAX or the JAX package: {loaded}"

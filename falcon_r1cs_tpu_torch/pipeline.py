@@ -42,8 +42,16 @@ class ProverInputs:
 
 def _batch_axis(name: str) -> int:
     """Batch axis of an engine segment: 1 for the feature-first segments
-    (NTT hint limbs and the norm blocks), 0 everywhere else."""
-    return 1 if name.endswith("_t") or name in ("norm_bits", "norm_vals") else 0
+    (NTT hint limbs, the norm blocks and the dual engine's pointwise
+    values), 0 everywhere else."""
+    feature_first = ("norm_bits", "norm_vals", "pointwise_vals")
+    return 1 if name.endswith("_t") or name in feature_first else 0
+
+
+def stitch_segments(segs: list[dict]) -> dict:
+    """One segment dict from the dicts of consecutive sub-batches, each
+    segment concatenated on its batch axis."""
+    return {k: torch.cat([s[k] for s in segs], dim=_batch_axis(k)) for k in segs[0]}
 
 
 class ProverInputPipeline:
@@ -96,10 +104,7 @@ class ProverInputPipeline:
             )
             for i in range(0, B, self.max_chunk)
         ]
-        seg = {
-            k: torch.cat([o.seg[k] for o in outs], dim=_batch_axis(k))
-            for k in outs[0].seg
-        }
+        seg = stitch_segments([o.seg for o in outs])
         packed = torch.cat([o.packed for o in outs]) if self.pack else None
         return ProverInputs(
             seg=seg, pk_ntt=seg["pk_ntt"], hm_ntt=seg["hm_ntt"], packed=packed

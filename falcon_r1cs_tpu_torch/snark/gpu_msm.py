@@ -26,9 +26,13 @@ Differences from the JAX engine, with the same results: coordinates are
 kernel blocks; groups run in a Python loop (lax.map there) and the group
 size is an argument (an environment variable there); the digit sort is
 `torch.sort(stable=True)` plus a gather (a variadic sort there).  Left
-out: the XLA row-layout engine, the dispatch watchdog, the bank and
-weighted-sum switches (the row bank and the automatic rule stay) and the
-sharded MSM.
+out: the XLA row-layout engine, the dispatch watchdog, and the bank and
+weighted-sum switches (the row bank and the automatic rule stay).
+
+`g1_msm_gpu_sharded` is the point-axis data-parallel MSM of
+`tpu_msm.g1_msm_tpu_sharded`: each rank of a device mesh runs the whole
+engine on its slice of the points, and the D partial sums are folded on
+the host.
 """
 
 from __future__ import annotations
@@ -37,11 +41,13 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import fq_mont as fq
 from ..ops.fq import mont_mul_cuda, point_add_aff_cuda, point_add_cuda
+from ..utils.device import rank_device
 from .bls12_381 import P as Q381, R as FR_R
-from .bls12_381 import g1_add, g1_double, g1_to_affine
+from .bls12_381 import g1_add, g1_double, g1_from_affine, g1_to_affine
 from .points import G1Array, ints_to_limbs
 
 WINDOW = 12
@@ -515,13 +521,19 @@ def g1_msm_gpu(points, scalars, window: int | None = None, device="cuda",
     assert isinstance(points, G1Array)
     n = len(points)
     n_pad = max(8, 1 << (n - 1).bit_length())
+    digits = _point_digits(points, scalars, window, n_pad)
+    return g1_msm_blocks(points, digits, n_pad, window, device, group)
+
+
+def _point_digits(points, scalars, window: int, n_pad: int) -> np.ndarray:
+    """The signed window digits (nw, n_pad) of the scalars, zero on the
+    infinity points (a leaf is infinite iff its digit is 0) and on the
+    padding."""
     sc = _scalars_u64(scalars)
     if points.inf.any():
-        # a leaf is infinite iff its digit is 0: zero these scalars
         sc = sc.copy()
         sc[points.inf.astype(bool)] = 0
-    digits = _pad_digits(_window_digits_signed(sc, window), n_pad)
-    return g1_msm_blocks(points, digits, n_pad, window, device, group)
+    return _pad_digits(_window_digits_signed(sc, window), n_pad)
 
 
 def g1_msm_gpu_multi(points, scalars_multi, window: int | None = None,
@@ -540,3 +552,44 @@ def g1_msm_gpu_multi(points, scalars_multi, window: int | None = None,
     digits = np.stack([_window_digits_signed(r, window) for r in rows], axis=1)
     return g1_msm_blocks_multi(points, _pad_digits(digits, n_pad), n_pad,
                                len(rows), window, device, group)
+
+
+def _point_shard(points, d: int, per: int) -> G1Array:
+    """Points d*per .. (d+1)*per - 1 (fewer, or none, at the end) as their
+    own G1Array, cached on `points` so that a shard's Montgomery form
+    (_points_mont) is converted once per point set."""
+    cache = points.__dict__.setdefault("_gpu_shard_cache", {})
+    if (d, per) not in cache:
+        sl = slice(d * per, (d + 1) * per)
+        cache[(d, per)] = G1Array(points.xs[sl], points.ys[sl], points.inf[sl])
+    return cache[(d, per)]
+
+
+def g1_msm_gpu_sharded(points, scalars, window: int | None, mesh):
+    """The point-axis data-parallel MSM over every rank of `mesh` (a
+    DeviceMesh spanning the world; every rank calls it with the same
+    points and scalars).  The points pad to D shards of
+    per = max(8, next power of two >= ceil(n / D)); rank d runs
+    g1_msm_blocks on shard d on its device, with no exchange until the D
+    affine partial sums, which every rank gathers and folds on the host
+    with the group law.  Returns the affine point or None, on every rank."""
+    if window is None:
+        window = WINDOW
+    assert isinstance(points, G1Array)
+    D = mesh.size()
+    if D != dist.get_world_size():
+        raise ValueError(f"the mesh spans {D} ranks of a world of {dist.get_world_size()}")
+    d = mesh.mesh.flatten().tolist().index(dist.get_rank())
+    n = len(points)
+    per = max(8, 1 << ((n + D - 1) // D - 1).bit_length())
+    digits = _point_digits(points, scalars, window, per * D)
+    part = g1_msm_blocks(_point_shard(points, d, per),
+                         np.ascontiguousarray(digits[:, d * per:(d + 1) * per]),
+                         per, window, rank_device(mesh.device_type))
+    parts = [None] * D
+    dist.all_gather_object(parts, part)
+    acc = None
+    for aff in parts:
+        if aff is not None:
+            acc = g1_add(acc, g1_from_affine(aff))
+    return g1_to_affine(acc) if acc is not None else None

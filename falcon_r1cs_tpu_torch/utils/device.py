@@ -27,3 +27,12 @@ def entry_device(device="cuda") -> torch.device:
             "on the CPU"
         )
     return dev
+
+
+def rank_device(device) -> torch.device:
+    """This process's device of `device`'s type: its current card (a rank
+    of a process group sets it from LOCAL_RANK), or the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

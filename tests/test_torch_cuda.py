@@ -387,3 +387,75 @@ def test_msm_on_card_matches_native(cuda):
     got = gpu_msm.g1_msm_gpu_multi(arr, scalars, device=cuda)
     assert got == native_backend.g1_msm_multi(arr, np.stack(scalars))
     assert fq.mont_mul_cuda.launches == k4 + 1
+
+
+@pytest.fixture()
+def world_one(cuda):
+    """A (1, 1) mesh over NCCL at world size 1 in this process; the process
+    group is destroyed after the test."""
+    from falcon_r1cs_tpu_torch.parallel import make_mesh
+
+    yield make_mesh(1, 1)
+    torch.distributed.destroy_process_group()
+
+
+def test_parallel_engines_world_one_on_card(cuda, world_one):
+    """make_mesh(1, 1) over NCCL at world size 1, in this process: the
+    sharded verify-with-NTT (also with fused_intt), dual and schoolbook
+    engines, gathered, equal their single-device engines on the card on
+    every segment, launching K1 2 and 4 times, K2 once and K3 once;
+    ntt_sharded at D = 1 equals the clear NTT."""
+    from falcon_r1cs_tpu_torch.falcon import ntt
+    from falcon_r1cs_tpu_torch.parallel import (
+        gather_segments,
+        ntt_sharded,
+        place_batch,
+        sharded_engine,
+        sharded_engine_dual,
+        sharded_engine_schoolbook,
+    )
+
+    mesh = world_one
+    assert mesh.device_type == "cuda" and torch.distributed.get_backend() == "nccl"
+    arrays = [_rand((8, 512), s, "cpu") for s in (71, 72, 73)]
+    signed = (arrays[0] - 6144,) + tuple(arrays[1:])
+    def fused(n, mesh):
+        return sharded_engine(n, mesh, fused_intt=True)
+
+    for make, single, inputs, wrapper, launches in (
+        (sharded_engine, witness_engine, arrays, cuda_ntt.ntt_with_hints_cuda, 2),
+        (fused, witness_engine, arrays, cuda_ntt.intt_ntt_hints_cuda, 1),
+        (sharded_engine_dual, witness_engine_dual, signed, cuda_ntt.ntt_with_hints_cuda, 4),
+        (sharded_engine_schoolbook, witness_engine_schoolbook, arrays, schoolbook_prods_cuda, 1),
+    ):
+        blocks = place_batch(mesh, *inputs)
+        before = wrapper.launches
+        got = gather_segments(mesh, make(512, mesh)(*blocks))
+        assert wrapper.launches == before + launches
+        want = single(512)(*blocks)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    x = arrays[0].numpy()
+    assert np.array_equal(ntt_sharded(mesh, FALCON_512)(arrays[0].to(cuda)).cpu().numpy(), ntt(x))
+
+
+def test_parallel_msm_world_one_on_card(cuda, world_one):
+    """g1_msm_gpu_sharded over one rank equals g1_msm_gpu and the native C
+    MSM at n = 2^12 - 3 (padded to 2^12)."""
+    n = (1 << 12) - 3
+    rng = np.random.default_rng(65)
+    arr = native_backend.g1_fixed_base_batch([int(x) for x in rng.integers(1, 2**62, n)])
+    sc = rng.integers(0, 2**63, size=(n, 4), dtype=np.uint64)
+    sc[:, 3] >>= np.uint64(2)
+    got = gpu_msm.g1_msm_gpu_sharded(arr, sc, gpu_msm.WINDOW, world_one)
+    assert got == gpu_msm.g1_msm_gpu(arr, sc, device=cuda) == native_backend.g1_msm(arr, sc)
+
+
+def test_dryrun_multichip_one_card(cuda):
+    """dryrun_multichip(1): one spawned rank over NCCL, every sharded
+    output bit-equal to the single-device engine's."""
+    from falcon_r1cs_tpu_torch.entry import dryrun_multichip
+
+    assert dryrun_multichip(1) == ["ntt DP+SP", "ntt DP", "dual DP", "schoolbook DP",
+                                   "sharded CRT"]
