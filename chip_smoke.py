@@ -30,7 +30,20 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
   batches, gathered equal to the single-device engines (K1 2 and 4, K3
   1); the sharded CRT check; the sharded MSM over the h query (K4, K5,
   K6); ntt_sharded at D = 1; `dryrun_multichip(1)` in a spawned rank;
-  `scaling_sweep`'s one point.
+  `scaling_sweep`'s one point;
+- the large prover and K-fold MSM tools (`falcon_r1cs_tpu_torch.tools`):
+  schoolbook-1024 (K3 once, four G1 MSMs of n_pad 2^21) and dual-1024 (K1
+  four times, four of 2^18) proven with `g1_backend="gpu"` by
+  `prove_large.run`, each proof identical to the native C's with the same
+  r and s, verified, a tampered input and a swapped proof rejected; the
+  2^21-point h-query MSM alone against the native C, its stages and its
+  peak device memory at the card's group (a quarter of its memory) and at
+  one window a group (the 6 GB rule before); half-digit
+  scalars on 2^21 tiled points through `g1_msm_gpu` and
+  `g1_msm_gpu_multi` (K = 2), equal to the native C and the group law;
+  `msm_multi.run` at 2^18 for K = 1, 2, 4 against the native C's
+  `g1_msm_multi`; `prove_batch_large.run` at dual-1024, K = 2, on gpu and
+  on native with the same r and s, identical proofs.
 
 It builds the kernels from csrc/, checks that each path launched its
 kernels (counts set to 0 just before the path, read just after), holds
@@ -77,6 +90,10 @@ N_SB_TRACE = 1
 N_SB_SAT = 4
 M_FQ = 1 << 16         # points per Fq kernel launch in the kernel-vs-plain phase
 TIMING_REPS = 20
+# the large phase: the K-fold MSM's K (tools.msm_multi) and the batch's K
+# (tools.prove_batch_large), the first to shrink if the smoke nears its limit
+LARGE_KS = (1, 2, 4)
+LARGE_BATCH_K = 2
 # the CLI phase's commands, run in-process on the card (the default device)
 CLI_COMMANDS = (["selftest"], ["verify", "1024"], ["aggregate", "--n", "1024", "--k", "1024"],
                 ["pok-sig", "1024", "--g1-backend", "gpu"],
@@ -395,15 +412,16 @@ def k5_per_group(n_pad: int, window: int) -> int:
     return levels + (cl.bit_length() - 1) + (ch.bit_length() - 1) + scan(ch) + scan(cl)
 
 
-def msm_launches(counted, n: int) -> dict:
-    """The launches of one MSM over n cached points at the default window
-    (+1 K4 when the point set is new): K6 once and K5 k5_per_group times
-    a window group."""
+def msm_launches(counted, n: int, K: int = 1) -> dict:
+    """The launches of one MSM (K = 1, g1_msm_gpu) or one K-fold MSM
+    (g1_msm_gpu_multi) over n cached points at the default window (+1 K4
+    when the point set is new): K6 once and K5 k5_per_group times a
+    window group, the K x 22 windows in groups of _group_windows."""
     from falcon_r1cs_tpu_torch.snark import gpu_msm
 
-    nw = (255 + gpu_msm.WINDOW - 1) // gpu_msm.WINDOW
+    nw = K * ((255 + gpu_msm.WINDOW - 1) // gpu_msm.WINDOW)
     n_pad = max(8, 1 << (n - 1).bit_length())  # 2^18 at Falcon-1024
-    groups = nw // gpu_msm._group_windows(n_pad, nw)
+    groups = nw // gpu_msm._group_windows(n_pad, nw, device="cuda")
     return dict.fromkeys(counted, 0) | {
         "point_add_aff_kernel": groups,
         "point_add_kernel": groups * k5_per_group(n_pad, gpu_msm.WINDOW)}
@@ -419,6 +437,10 @@ def device_kernel_ms(fn, keep=("point_add",)):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the profiler keeps only device activity stamped after its start,
+        # which it reads on the host's clock: a launch right after the
+        # start can land before it and be dropped, so start launching later
+        time.sleep(0.05)
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -482,7 +504,6 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
     ni = compiled.num_instance
     msms = [("a", pk.a_query, z), ("b_g1", pk.b_g1_query, z),
             ("l", pk.l_query, z[ni:]), ("h", pk.h_query, h)]
-    nw = (255 + gpu_msm.WINDOW - 1) // gpu_msm.WINDOW
 
     expect = {k: sum(msm_launches(counted, len(p))[k] for _, p, _ in msms) for k in counted}
     expect["mont_mul_kernel"] = len(msms)  # each new point set converts once
@@ -512,33 +533,7 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
         "held before")
 
     # where one warm MSM's time goes: host recode, device window sums, host fold
-    pts, sc = pk.h_query, h
-    n_pad = max(8, 1 << (len(pts) - 1).bit_length())
-    t0 = time.perf_counter()
-    digits = gpu_msm._pad_digits(gpu_msm._window_digits_signed(sc, gpu_msm.WINDOW), n_pad)
-    recode_s = time.perf_counter() - t0
-    Xm, Ym = gpu_msm._points_mont(pts, n_pad, dev)
-    G = gpu_msm._group_windows(n_pad, nw)
-
-    def sums():
-        return gpu_msm._window_sums(torch.from_numpy(digits).to(dev), Xm, Ym,
-                                    gpu_msm.WINDOW, G)
-
-    ws = sums()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gpu_msm._fold_windows_host(ws, nw, 1, gpu_msm.WINDOW)
-    fold_s = time.perf_counter() - t0
-    sums_ms = cuda_ms(sums, reps=3, inner=1, warmup=1)
-    wall, busy, top, _ = device_kernel_ms(sums)
-    # the idle share against the unprofiled CUDA-event time: the profiler
-    # slows the host's launches, so its own wall time overstates idling
-    log(f"MSM h: host recode {recode_s * 1e3:.1f} ms, device window sums "
-        f"{sums_ms:.1f} ms (CUDA events), host fold {fold_s * 1e3:.1f} ms; "
-        f"kernels busy {busy:.1f} ms (idle share {1 - busy / sums_ms:.3f}; "
-        f"{wall:.1f} ms wall under the profiler)")
-    for key, ms, count in top:
-        log(f"  {ms:9.3f} ms  x{count:<5d} {key}")
+    msm_stages(dev, counted, pk.h_query, h, "h")
     return launches, (pk.h_query, h)
 
 
@@ -674,8 +669,8 @@ def parallel_phase(port, dev, insts, out, rs, instance, packed, h_msm, counted):
     single-device engine on every key; the sharded CRT check on N_SAT
     signatures, all True and False exactly where bumped; the sharded MSM
     over the h query (2^18 points, window 12) equal to g1_msm_gpu and the
-    native C (K4 1 cold, K6 2, K5 100); ntt_sharded at D = 1 equal to the
-    clear NTT; dryrun_multichip(1), a spawned rank over NCCL; and
+    native C (K4 1 cold, K5 and K6 as msm_launches); ntt_sharded at D = 1
+    equal to the clear NTT; dryrun_multichip(1), a spawned rank over NCCL; and
     scaling_sweep's one point.  Returns {path: launches} of the sharded
     calls."""
     import torch.distributed as dist
@@ -788,6 +783,202 @@ def parallel_phase(port, dev, insts, out, rs, instance, packed, h_msm, counted):
         f"witnesses/s device-only engine, 1 rank (no scaling figure: one card)")
     dist.destroy_process_group()
     return sharded
+
+
+def sublog(line):
+    log(f"  | {line}")
+
+
+def large_prove(dev, counted, which, witness_launches, seed):
+    """`tools.prove_large.run(which, 1024, "gpu")` with the setup's toxic
+    waste and r, s from `seed`: the witness at B = 1, a fresh setup, the
+    prove cold (K4 4 times, the CRS conversion) and warm, verify, the
+    tampered public input rejected; every count set to 0 just before the
+    run and read just after: exactly `witness_launches`, K4 4, and K5 and
+    K6 twice (cold and warm) msm_launches summed over the four MSMs.  The
+    proof equals prove(g1_backend="native")'s with the same r, s, and a
+    swapped proof is rejected.  Returns (the run's result, the launches,
+    the four MSMs as (name, points, scalars))."""
+    from falcon_r1cs_tpu_torch import Q
+    from falcon_r1cs_tpu_torch.snark import groth16, native_backend
+    from falcon_r1cs_tpu_torch.snark.bls12_381 import R
+    from falcon_r1cs_tpu_torch.tools import prove_large
+
+    rng = np.random.default_rng(seed)
+    draw = [int.from_bytes(rng.bytes(32), "little") % (R - 1) + 1 for _ in range(7)]
+    toxic, (r, s) = groth16.SetupToxic(*draw[:5]), draw[5:]
+    out, seconds, launches = counted_run(
+        counted, lambda: prove_large.run(which, 1024, "gpu", dev, toxic=toxic, r=r, s=s,
+                                         log=sublog))
+    pk, compiled, z, publics, proof = (out[k] for k in ("pk", "compiled", "assignment",
+                                                        "publics", "proof"))
+    h, _ = native_backend.witness_map(compiled, z)
+    ni = compiled.num_instance
+    msms = [("a", pk.a_query, z), ("b_g1", pk.b_g1_query, z), ("l", pk.l_query, z[ni:]),
+            ("h", pk.h_query, h)]
+    expect = {k: 2 * sum(msm_launches(counted, len(p))[k] for _, p, _ in msms) for k in counted}
+    expect |= {"mont_mul_kernel": len(msms)} | witness_launches
+    assert launches == expect, (which, launches, expect)
+    t0 = time.perf_counter()
+    want = groth16.prove(pk, compiled, z, r=r, s=s, g1_backend="native")
+    native_s = time.perf_counter() - t0
+    assert (proof.a, proof.b, proof.c) == (want.a, want.b, want.c), f"{which}: gpu proof != native"
+    assert not groth16.verify(pk.vk, publics, groth16.Proof(a=proof.c, b=proof.b, c=proof.a))
+    bad = list(publics)
+    bad[-1] = (bad[-1] + 1) % Q
+    assert not groth16.verify(pk.vk, bad, proof), f"{which}: a tampered input verified"
+    sec = out["seconds"]
+    log(f"{which}-1024 prove, g1_backend=gpu: setup {sec['setup (CRS)']:.1f} s, prove cold "
+        f"{sec['prove (cold)']:.3f} s (with the CRS conversion), warm {sec['prove (warm)']:.3f} "
+        f"s; native C prove {native_s:.3f} s, identical proof; verify True "
+        f"({sec['verify']:.3f} s), tampered input / swapped proof False; MSM points "
+        f"{[len(p) for _, p, _ in msms]}; peak device memory {out['peak_device_gib']:.2f} GiB "
+        f"over the run; launches {({k: v for k, v in launches.items() if v})}; "
+        f"{seconds:.1f} s in all")
+    return out, launches, msms
+
+
+def msm_stages(dev, counted, pts, sc, name):
+    """One warm g1_msm_gpu over `pts` (their Montgomery form cached)
+    against the native C, then where its time goes: the host recode, the
+    device window sums (CUDA events, 3 samples each in turns, with their
+    peak device memory) at the card's group (a quarter of its memory) and
+    at the group of the 6 GB rule (the JAX engine's, the port's before),
+    their kernels under the profiler, the host fold."""
+    from falcon_r1cs_tpu_torch.snark import gpu_msm, native_backend
+
+    t0 = time.perf_counter()
+    want = native_backend.g1_msm(pts, sc)
+    nat_s = time.perf_counter() - t0
+    got, warm_s, d = counted_run(counted, lambda: gpu_msm.g1_msm_gpu(pts, sc))
+    assert got == want, f"MSM {name} != native"
+    assert d == msm_launches(counted, len(pts)), d
+    n_pad = max(8, 1 << (len(pts) - 1).bit_length())
+    nw = (255 + gpu_msm.WINDOW - 1) // gpu_msm.WINDOW
+    t0 = time.perf_counter()
+    digits = gpu_msm._pad_digits(gpu_msm._window_digits_signed(sc, gpu_msm.WINDOW), n_pad)
+    recode_s = time.perf_counter() - t0
+    digits = torch.from_numpy(digits).to(dev)
+    Xm, Ym = gpu_msm._points_mont(pts, n_pad, dev)
+    default = gpu_msm._group_windows(n_pad, nw, device=dev)
+    groups = (default, gpu_msm._group_windows(n_pad, nw))
+
+    def sums(G):
+        return gpu_msm._window_sums(digits, Xm, Ym, gpu_msm.WINDOW, G)
+
+    peaks, times = {}, {G: [] for G in groups}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    for G in groups:
+        torch.cuda.reset_peak_memory_stats()
+        ws = sums(G)
+        torch.cuda.synchronize()
+        peaks[G] = torch.cuda.max_memory_allocated() / 2**30 - held
+        if G == default:
+            t0 = time.perf_counter()
+            gpu_msm._fold_windows_host(ws, nw, 1, gpu_msm.WINDOW)
+            fold_s = time.perf_counter() - t0
+        del ws
+    for rep in range(3):
+        for G in groups if rep % 2 == 0 else groups[::-1]:
+            times[G].append(cuda_ms(lambda: sums(G), reps=1, inner=1, warmup=0))
+    for G in groups:
+        log(f"MSM {name} n={len(pts)} window sums, {G} window(s) a group ({nw // G} groups): "
+            f"{', '.join(f'{t:.1f}' for t in times[G])} ms (CUDA events, in turns); peak "
+            f"device memory {peaks[G]:.2f} GiB over the {held:.2f} GiB held before")
+    sums_ms = statistics.median(times[default])
+    wall, busy, top, _ = device_kernel_ms(lambda: sums(default))
+    log(f"MSM {name} n={len(pts)}: gpu warm {warm_s:.3f} s, native C {nat_s:.3f} s, equal; "
+        f"host recode {recode_s * 1e3:.1f} ms, device window sums {sums_ms:.1f} ms "
+        f"({default} windows a group), host fold {fold_s * 1e3:.1f} ms; kernels busy "
+        f"{busy:.1f} ms (idle share {1 - busy / sums_ms:.3f}; {wall:.1f} ms wall under the "
+        "profiler)")
+    for key, ms, count in top:
+        log(f"  {ms:9.3f} ms  x{count:<5d} {key}")
+
+
+def large_phase(dev, counted, h_points):
+    """The large-circuit prover and the K-fold MSM tools on the card, every
+    count set to 0 just before each step and read just after:
+    schoolbook-1024 (K3 1; four MSMs of n_pad 2^21, G1 on the card) and
+    dual-1024 (K1 4; four of 2^18) through tools.prove_large, each proof
+    identical to the native C's; the h query's 2^21-point MSM on its own
+    and its stages; half-digit scalars on 2^21 tiled points through
+    g1_msm_gpu and g1_msm_gpu_multi (K = 2); tools.msm_multi at 2^18 (the
+    verify-with-NTT h query, `h_points`) for K in LARGE_KS; and
+    tools.prove_batch_large at dual-1024, K = LARGE_BATCH_K, on gpu and
+    native with the same r and s, identical proofs.  Returns {step:
+    launches}."""
+    from falcon_r1cs_tpu_torch.snark.bls12_381 import R
+    from falcon_r1cs_tpu_torch.tools import msm_multi, prove_batch_large
+
+    steps = {}
+
+    def step(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"large step {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    out, steps["schoolbook-1024 prove"], msms = step(
+        "schoolbook-1024 prove", large_prove, dev, counted, "schoolbook",
+        {"schoolbook_prods_kernel": 1}, 20261022)
+    step("schoolbook-1024 h MSM stages", msm_stages, dev, counted, msms[3][1], msms[3][2], "h")
+    del out, msms
+    dual, steps["dual-1024 prove"], _ = step(
+        "dual-1024 prove", large_prove, dev, counted, "dual", {"ntt_hints_kernel": 4}, 20261023)
+
+    def half_digits():
+        n, K = 1 << 21, 2
+        _, seconds, d = counted_run(
+            counted, lambda: msm_multi.half_digit_check(n, K, device=dev, log=sublog))
+        expect = {k: msm_launches(counted, n)[k] + msm_launches(counted, n, K)[k]
+                  for k in counted} | {"mont_mul_kernel": 1}
+        assert d == expect, (d, expect)
+        return d
+
+    steps["half digits 2^21"] = step("half digits 2^21", half_digits)
+
+    def k_fold():
+        iters = 2
+        cached = hasattr(h_points, "_gpu_mont_cache")
+        rows, _, d = counted_run(
+            counted, lambda: msm_multi.run(1024, LARGE_KS, iters, dev, points=h_points,
+                                           log=sublog))
+        expect = {k: sum((1 + iters) * msm_launches(counted, len(h_points), K)[k]
+                         for K in LARGE_KS) for k in counted}
+        expect["mont_mul_kernel"] = 0 if cached else 1
+        assert d == expect, (d, expect)
+        return d
+
+    steps["k-fold 2^18"] = step("k-fold 2^18", k_fold)
+
+    def batch():
+        K = LARGE_BATCH_K
+        rng = np.random.default_rng(20261024)
+        rs, ss = ([int.from_bytes(rng.bytes(32), "little") % R for _ in range(K)]
+                  for _ in range(2))
+        pk = dual["pk"]
+        runs = {}
+        for backend in ("gpu", "native"):
+            runs[backend] = counted_run(counted, lambda: prove_batch_large.run(
+                "dual", K, 1024, backend, dev, rs=rs, ss=ss, pk=pk, log=sublog))
+        (gpu, _, d), (native, _, d_native) = runs["gpu"], runs["native"]
+        assert [(p.a, p.b, p.c) for p in gpu["proofs"]] == \
+            [(p.a, p.b, p.c) for p in native["proofs"]], "batch: gpu proofs != native"
+        four = [pk.a_query, pk.b_g1_query, pk.l_query, pk.h_query]
+        proves = min(2, K) + 2 + K  # the warm-up batch, two singles, the batch
+        expect = {k: proves * sum(msm_launches(counted, len(p))[k] for p in four)
+                  for k in counted} | {"ntt_hints_kernel": 4}
+        assert d == expect, (d, expect)
+        assert d_native == dict.fromkeys(counted, 0) | {"ntt_hints_kernel": 4}, d_native
+        log(f"batch dual-1024 K={K}: gpu {gpu['per_proof_s']:.3f} s/proof (single "
+            f"{gpu['single_s']:.3f} s), native {native['per_proof_s']:.3f} s/proof (single "
+            f"{native['single_s']:.3f} s); identical proofs, all verify")
+        return d
+
+    steps["batch dual-1024 K=2"] = step("batch dual-1024", batch)
+    return {k: {name: v for name, v in d.items() if v} for k, d in steps.items()}
 
 
 def semi_kernel_vs_plain(dev, launches, build_log):
@@ -1407,9 +1598,12 @@ def main():
     phase("cli", cli_phase, dev, path_counted)
     sharded = phase("parallel", parallel_phase, port, dev, insts, out, rs, instance, packed,
                     h_msm, path_counted)
+    large = phase("large prover", large_phase, dev, path_counted, h_msm[0])
     for rec in records:
         rec["sharded_launches"] = {path: counts[rec["name"]]
                                    for path, counts in sharded.items() if rec["name"] in counts}
+        rec["large_launches"] = {path: counts[rec["name"]]
+                                 for path, counts in large.items() if rec["name"] in counts}
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "falcon_r1cs_tpu")]
     assert not loaded, f"the port loaded JAX or the JAX package: {loaded}"

@@ -11,7 +11,8 @@ The counterpart of `falcon_r1cs_tpu/ops/pallas_fq.py` (and of the XLA
 - `point_add_cuda(p1, p2)` launches `point_add_kernel` (K5, the port of
   `_point_add_kernel`): the complete Jacobian add; plain version
   `point_add`, the port of tpu_msm's `point_add`, bit-equal to the JAX
-  package.
+  package except on the rows where the JAX package's relaxed equality
+  test errs (the plain versions test equality exactly, `eq_exact`).
 - `point_add_aff_cuda(p1, p2)` launches `point_add_aff_kernel` (K6, the
   port of `_point_add_aff_kernel`): affine + affine -> Jacobian; plain
   version `point_add_aff`, a transcription of that Pallas kernel (the JAX
@@ -72,10 +73,24 @@ def _sel(cond, a, b):
     return torch.where(cond[None], a, b)
 
 
+def eq_exact(a, b):
+    """Exact value equality mod q of two relaxed reps, the point adds'
+    test, exact as the kernels' word compare is.  `fq_mont.eq_mod_q` (the
+    JAX package's) steers by an f32 quotient estimate that cancels when
+    the difference is negative with its top limb -1 over limbs near 2^12,
+    and then calls equal values unequal (ROADMAP Queue 3), which sends a
+    doubling or a P + (-P) row down the chord.  Here the difference's
+    magnitude is carried to nonnegative digits first (as in
+    `fq_mont.canonical`), so the estimate sums terms of one sign."""
+    d = fq.full_carry(fq.sub_mod(a, b))
+    return fq.is_zero_mod_q(fq.full_carry(torch.where(d[-1:] < 0, -d, d)))
+
+
 def point_add(p1, p2):
     """Complete Jacobian addition: the chord and the tangent (doubling)
     paths are both evaluated and the result selected, as in the JAX
-    package.  The plain version of K5."""
+    package, by exact equality tests (`eq_exact`).  The plain version of
+    K5."""
     X1, Y1, Z1, inf1 = p1
     X2, Y2, Z2, inf2 = p2
     mul, sub = fq.mont_mul, fq.sub_mod
@@ -95,8 +110,8 @@ def point_add(p1, p2):
     Y3 = sub(mul(rr, sub(V, X3)), _dbl(mul(S1, J)))
     Z3 = _dbl(mul(mul(Z1, Z2), H))
 
-    same_x = fq.eq_mod_q(U1, U2)
-    same_y = fq.eq_mod_q(S1, S2)
+    same_x = eq_exact(U1, U2)
+    same_y = eq_exact(S1, S2)
     dbl = point_double(p1)
     use_dbl = same_x & same_y & ~inf1 & ~inf2
     is_inf3 = (same_x & ~same_y & ~inf1 & ~inf2) | (inf1 & inf2)
@@ -205,8 +220,8 @@ def point_add_aff(p1, p2):
     Yd = sub(mul(E, sub(D, Xd)), _dbl(C, 3))
     Zd = _dbl(Y1)
 
-    same_x = fq.eq_mod_q(X1, X2)
-    same_y = fq.eq_mod_q(Y1, Y2)
+    same_x = eq_exact(X1, X2)
+    same_y = eq_exact(Y1, Y2)
     use_dbl = same_x & same_y & ~inf1 & ~inf2
     is_inf3 = (same_x & ~same_y & ~inf1 & ~inf2) | (inf1 & inf2)
     one = fq.consts(X1.device)["one"][:, None].expand(X1.shape)

@@ -183,26 +183,35 @@ def _local_sp_engine(params, mesh: DeviceMesh):
     return run
 
 
-def _batch_dp_only(mesh: DeviceMesh, name: str):
-    if mesh.shape[1] != 1:
-        raise ValueError(f"{name} shards the batch only; the mesh's coeff dim is "
-                         f"{mesh.shape[1]}")
+def _whole_rows(engine, mesh: DeviceMesh):
+    """`engine` (a single-device engine over whole (rows, n) polynomials)
+    on this rank's (batch, coeff) blocks: on a coeff dim > 1 the blocks of
+    the rank's coeff group are gathered into the whole rows first, so that
+    every rank of the group runs the whole engine and holds an equal copy
+    of its batch row's segments (the JAX package's shard_map with
+    in_specs P("batch", None), replicated over "coeff")."""
+    if mesh.shape[1] == 1:
+        return engine
+    group = mesh.get_group("coeff")
+
+    def run(*blocks):
+        return engine(*(_all_gather(b, group, 1) for b in blocks))
+
+    return run
 
 
 def sharded_engine_dual(n: int, mesh: DeviceMesh):
     """The batch-sharded dual-NTT engine: each rank runs the whole
-    single-device engine on its rows (on a card K1 four times).  Needs a
-    mesh with coeff dim 1."""
-    _batch_dp_only(mesh, "sharded_engine_dual")
-    return witness_engine_dual(n)
+    single-device engine on its batch row's whole polynomials (on a card
+    K1 four times), replicated over the coeff dim."""
+    return _whole_rows(witness_engine_dual(n), mesh)
 
 
 def sharded_engine_schoolbook(n: int, mesh: DeviceMesh):
     """The batch-sharded schoolbook engine: each rank runs the whole
-    single-device engine on its rows (on a card K3 once).  Needs a mesh
-    with coeff dim 1."""
-    _batch_dp_only(mesh, "sharded_engine_schoolbook")
-    return witness_engine_schoolbook(n)
+    single-device engine on its batch row's whole polynomials (on a card
+    K3 once), replicated over the coeff dim."""
+    return _whole_rows(witness_engine_schoolbook(n), mesh)
 
 
 # one gather into one output tensor (its name from torch 2.13; before,
@@ -226,13 +235,16 @@ def _all_gather(t, group, axis: int):
 
 def gather_segments(mesh: DeviceMesh, seg: dict) -> dict:
     """The global segment dict, on every rank, from each rank's block of
-    any engine above: every segment gathered over the coeff dim (on the
-    axis after its batch axis; `bound` is whole on every coeff rank), then
-    over the batch dim (its batch axis, pipeline._batch_axis).  The
-    coefficient-sharded engine's norm halves are gathered each on its own
-    and glued [v-block | sig-block]."""
+    any engine above.  The coefficient-sharded engine's segments (known by
+    its norm halves) are gathered over the coeff dim (on the axis after
+    their batch axis; `bound` is whole on every coeff rank), its norm
+    halves each on its own and glued [v-block | sig-block]; every other
+    engine's segments are whole on every coeff rank already.  Then every
+    segment is gathered over the batch dim (its batch axis,
+    pipeline._batch_axis)."""
     batch_group = mesh.get_group("batch")
-    coeff_group = mesh.get_group("coeff") if mesh.shape[1] > 1 else None
+    sp = mesh.shape[1] > 1 and any(v_half in seg for v_half, _ in _NORM_HALVES.values())
+    coeff_group = mesh.get_group("coeff") if sp else None
 
     def gather(name, t):
         axis = _batch_axis(name)

@@ -23,8 +23,9 @@ The port of the JAX package's wide-tree Pallas engine
 
 Differences from the JAX engine, with the same results: coordinates are
 (35, m) limb-major with no (8, 128) blocks and no padding to 1024-point
-kernel blocks; groups run in a Python loop (lax.map there) and the group
-size is an argument (an environment variable there); the digit sort is
+kernel blocks; groups run in a Python loop (lax.map there), the group
+size is an argument (an environment variable there) and its memory
+budget on a card a quarter of the card (6 GB there); the digit sort is
 `torch.sort(stable=True)` plus a gather (a variadic sort there).  Left
 out: the XLA row-layout engine, the dispatch watchdog, and the bank and
 weighted-sum switches (the row bank and the automatic rule stay).
@@ -369,12 +370,29 @@ def _brev(n: int) -> np.ndarray:
     return out
 
 
-def _group_windows(n: int, nw: int, cap: int | None = None) -> int:
+# bytes of a wide-tree group's live state on the CPU: the JAX engine's
+# budget (tpu_msm_blocks._group_windows)
+GROUP_BYTES_CPU = 6e9
+
+
+def _group_bytes(device) -> float:
+    """The group budget on `device`: a quarter of a card's memory (on an
+    80 GB H100, two of the 22 windows of a 2^21-point MSM a group, all 22
+    at 2^18), or GROUP_BYTES_CPU on the CPU.  At 6 GB a 2^21-point MSM
+    ran one window a group, 22 groups whose launches left the card idle
+    (PERF.md §5)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return GROUP_BYTES_CPU
+    return torch.cuda.get_device_properties(device).total_memory / 4
+
+
+def _group_windows(n: int, nw: int, cap: int | None = None, device="cpu") -> int:
     """Windows per wide-tree group: the largest divisor of nw within `cap`
     (default: a group's live top-level tree state, ~4 x 3 coords x 35 x
-    W x n int32, within ~6 GB)."""
+    W x n int32, within `_group_bytes(device)`)."""
     if cap is None:
-        cap = int(6e9 // (4 * 3 * fq.NL * n * 4))
+        cap = int(_group_bytes(device) // (4 * 3 * fq.NL * n * 4))
     cap = max(1, min(nw, cap))
     for g in range(cap, 0, -1):
         if nw % g == 0:
@@ -484,7 +502,7 @@ def g1_msm_blocks(points, digits, n_pad: int, window: int, device="cuda",
     or None."""
     Xm, Ym = _points_mont(points, n_pad, device)
     nw = digits.shape[0]
-    G = _group_windows(n_pad, nw, group)
+    G = _group_windows(n_pad, nw, group, Xm.device)
     ws = _window_sums(torch.from_numpy(digits).to(Xm.device), Xm, Ym, window, G)
     return _fold_windows_host(ws, nw, 1, window)[0]
 
@@ -497,7 +515,7 @@ def g1_msm_blocks_multi(points, digits_all, n_pad: int, K: int, window: int,
     Xm, Ym = _points_mont(points, n_pad, device)
     nw = digits_all.shape[0]
     flat = np.ascontiguousarray(digits_all.reshape(nw * K, n_pad))
-    G = _group_windows(n_pad, nw * K, group)
+    G = _group_windows(n_pad, nw * K, group, Xm.device)
     ws = _window_sums(torch.from_numpy(flat).to(Xm.device), Xm, Ym, window, G)
     return _fold_windows_host(ws, nw, K, window)
 
@@ -514,7 +532,8 @@ def g1_msm_gpu(points, scalars, window: int | None = None, device="cuda",
                group: int | None = None):
     """MSM over a points.G1Array on `device`; returns an affine point or
     None.  `window` trades bucket count (2^(w-1)) against window count;
-    None uses 12.  `group` caps the windows per tree (default: by memory).
+    None uses 12.  `group` caps the windows per tree (default: by the
+    device's memory, `_group_bytes`).
     Points pad to the next power of two >= 8 (infinities, zero scalars)."""
     if window is None:
         window = WINDOW

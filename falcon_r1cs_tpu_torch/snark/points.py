@@ -37,17 +37,17 @@ def limbs_to_int(row: np.ndarray) -> int:
 
 
 def packed_to_limb_rows(packed: np.ndarray) -> np.ndarray:
-    """(W, 5) u32 canonical witness limbs (witness/export_device.py) ->
+    """(W, L) u32 canonical witness limbs (witness/export_device.py) ->
     (W, 4) u64 scalar rows for the prover — all-numpy, no Python ints.
 
-    The export packer stores each wire as five little-endian 32-bit
-    limbs (values < 2^160 < r); this folds them into the (N, 4) u64
-    form prove()/witness_map consume directly."""
+    The export packer stores each wire as L little-endian 32-bit limbs:
+    five for the verify-with-NTT and dual-NTT circuits (values < 2^160 <
+    r), eight for the schoolbook circuit's field values; this folds them
+    into the (N, 4) u64 form prove()/witness_map consume directly."""
     p = np.asarray(packed).view(np.uint32).astype(np.uint64)
     out = np.zeros((p.shape[0], 4), dtype=np.uint64)
-    out[:, 0] = p[:, 0] | (p[:, 1] << np.uint64(32))
-    out[:, 1] = p[:, 2] | (p[:, 3] << np.uint64(32))
-    out[:, 2] = p[:, 4]
+    for k in range(p.shape[1]):
+        out[:, k // 2] |= p[:, k] << np.uint64(32 * (k % 2))
     return out
 
 

@@ -389,6 +389,30 @@ def test_msm_on_card_matches_native(cuda):
     assert fq.mont_mul_cuda.launches == k4 + 1
 
 
+def test_msm_half_digits_2_20_on_card(cuda):
+    """g1_msm_gpu over 2^20 points tiled from 8 base points, every third
+    scalar engineered so that the window-12 recode emits +2048 (and the
+    window-16 patterns of the native test): equal to the native C's
+    g1_msm and to the group law over the base points (half_digit_check;
+    its K = 1 K-fold MSM too)."""
+    from falcon_r1cs_tpu_torch.tools import msm_multi
+
+    k4 = fq.mont_mul_cuda.launches
+    out = msm_multi.half_digit_check(1 << 20, K=1, device=cuda, log=lambda *_: None)
+    assert out["sums"][0] is not None
+    assert fq.mont_mul_cuda.launches == k4 + 1
+
+
+def test_msm_multi_half_digits_2_19_on_card(cuda):
+    """g1_msm_gpu_multi at K = 2 over 2^19 tiled points with the
+    half-digit scalars: equal to the native C's g1_msm_multi and to the
+    group law (half_digit_check)."""
+    from falcon_r1cs_tpu_torch.tools import msm_multi
+
+    out = msm_multi.half_digit_check(1 << 19, K=2, device=cuda, log=lambda *_: None)
+    assert len(out["sums"]) == 2
+
+
 @pytest.fixture()
 def world_one(cuda):
     """A (1, 1) mesh over NCCL at world size 1 in this process; the process

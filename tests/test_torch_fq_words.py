@@ -637,10 +637,12 @@ def test_point_add_aff_words_far_from_canonical():
 def test_relaxed_equality_row_goes_to_the_referee():
     """The Queue 3 input at K6: X1 = -q written with top limb -1 over
     limbs at 2^12 - 1 (zero), X2 = 0, Y1 = Y2 = the limbs of 2 (the point
-    (0, 2) of y^2 = x^3 + 4).  The words see X1 == X2 and take the doubling
-    path; the plain version's f32-steered test calls them unequal and
-    takes the chord.  The exact referee agrees with the words, and
-    fq_check.value_check counts the row as decided, not as an error."""
+    (0, 2) of y^2 = x^3 + 4).  The JAX package's f32-steered test
+    (`fq_mont.eq_mod_q`, kept bit-equal) calls X1 and X2 unequal, which
+    would send the row down the chord (Z = 2 H = 0).  The words and the
+    plain version's exact test (`fq.eq_exact`) see X1 == X2 and take the
+    doubling path; the exact referee agrees, so fq_check.value_check
+    finds nothing left for it to decide."""
     from falcon_r1cs_tpu_torch.ops import fq_check
 
     rep = _raw_limbs((1 << 408) - Q)
@@ -652,14 +654,16 @@ def test_relaxed_equality_row_goes_to_the_referee():
     x2 = torch.from_numpy(np.stack([np.zeros(35, np.int32), X[:, 0].numpy()]).T.copy())
     no = torch.zeros(2, dtype=torch.bool)
     a1, a2 = (x1, y1, no), (x2, y1.clone(), no)
-    assert _check_aff_by_value(a1, a2) == [0]
+    assert not bool(tfq.eq_mod_q(x1, x2)[0]) and fq.eq_exact(x1, x2).all()
+    assert _check_aff_by_value(a1, a2) == []
     want = fq.point_add_aff(a1, a2)
-    assert not tfq.canonical(want[2])[:, 0].any()  # the chord's Z = 2 H = 0
+    four = _canon_limbs(4 * tfq.R_MONT % Q).tolist()
+    assert tfq.canonical(want[2])[:, 0].tolist() == four  # the doubling's Z = 2 Y1
     got = [torch.tensor([point_add_aff_words(_columns(a1, i), _columns(a2, i))[k]
                          for i in range(2)]).T for k in range(3)]
     got.append(torch.zeros(2, dtype=torch.bool))
-    assert tfq.canonical(got[2])[:, 0].tolist() == _canon_limbs(4 * tfq.R_MONT % Q).tolist()
-    assert fq_check.value_check(tuple(got), want, a1, a2) == (0, 1)
+    assert tfq.canonical(got[2])[:, 0].tolist() == four
+    assert fq_check.value_check(tuple(got), want, a1, a2) == (0, 0)
 
 
 def test_value_check_affine_and_product():

@@ -68,6 +68,8 @@ def test_port_loads_no_jax_package():
     assert out.returncode == 0, out.stderr
     assert "falcon_r1cs_tpu_torch.snark.gpu_msm" in mods
     assert "falcon_r1cs_tpu_torch.circuits.falcon_ntt" in mods
+    assert {f"falcon_r1cs_tpu_torch.tools.{m}"
+            for m in ("prove_large", "prove_batch_large", "msm_multi")} <= set(mods)
 
 
 @pytest.mark.parametrize("name", sorted(GOLDEN_512))

@@ -23,6 +23,19 @@ from falcon_r1cs_tpu_torch.snark.points import G1Array
 rng = np.random.default_rng(20261017)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """torch's CPU ops on one thread: the plain MSM is thousands of small
+    ops, and with every core busy (the suite's other workers) a pool of
+    threads a process waits on the others at each op (~20x slower)."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _scalars_u64(n):
     sc = rng.integers(0, 2**63, size=(n, 4), dtype=np.uint64) * np.uint64(2)
     sc[:, 3] >>= np.uint64(2)  # < 2^254 < r

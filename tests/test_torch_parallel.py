@@ -70,6 +70,9 @@ def _jobs(world):
         cases += [(f"engine{b}", jobs.engine_job, ("ntt", 512, b, ENGINE[512]))
                   for b in BATCH_AXES]
         cases += [("engine1024", jobs.engine_job, ("ntt", 1024, 1, ENGINE[1024]))]
+        # the DP-only engines on a (2, 2) mesh: replicated over coeff
+        cases += [("dual22", jobs.engine_job, ("dual", 512, 2, DUAL)),
+                  ("schoolbook22", jobs.engine_job, ("schoolbook", 512, 2, SCHOOLBOOK))]
     return cases
 
 
@@ -151,6 +154,28 @@ def test_sharded_engine_schoolbook_matches_jax(ranks):
     got, calls = ranks[2]["schoolbook"]
     mesh2 = jax_mesh.make_mesh(2, 2)
     _assert_segments_equal(got, jax_mesh.sharded_engine_schoolbook(512, mesh2)(*SCHOOLBOOK))
+    _assert_segments_equal(got, jitted_engine_schoolbook(512)(*SCHOOLBOOK))
+    assert calls == 0
+
+
+def test_sharded_engine_dual_coeff_mesh_matches_jax(ranks):
+    """World 4 on a (2, 2) mesh, n = 512, B = 8: each coeff rank runs the
+    whole dual engine on its batch row's gathered polynomials, and the
+    segments, gathered over the batch dim only, equal JAX's
+    sharded_engine_dual on make_mesh(4, batch_axis=2) (replicated over
+    "coeff") and its jitted_engine_dual; no partner exchange."""
+    got, calls = ranks[4]["dual22"]
+    mesh22 = jax_mesh.make_mesh(4, batch_axis=2)
+    _assert_segments_equal(got, jax_mesh.sharded_engine_dual(512, mesh22)(*DUAL))
+    _assert_segments_equal(got, jitted_engine_dual(512)(*DUAL))
+    assert calls == 0
+
+
+def test_sharded_engine_schoolbook_coeff_mesh_matches_jax(ranks):
+    """The schoolbook engine on the same (2, 2) mesh, n = 512, B = 8."""
+    got, calls = ranks[4]["schoolbook22"]
+    mesh22 = jax_mesh.make_mesh(4, batch_axis=2)
+    _assert_segments_equal(got, jax_mesh.sharded_engine_schoolbook(512, mesh22)(*SCHOOLBOOK))
     _assert_segments_equal(got, jitted_engine_schoolbook(512)(*SCHOOLBOOK))
     assert calls == 0
 
