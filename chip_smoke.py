@@ -43,7 +43,14 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
   `g1_msm_gpu_multi` (K = 2), equal to the native C and the group law;
   `msm_multi.run` at 2^18 for K = 1, 2, 4 against the native C's
   `g1_msm_multi`; `prove_batch_large.run` at dual-1024, K = 2, on gpu and
-  on native with the same r and s, identical proofs.
+  on native with the same r and s, identical proofs;
+- the Falcon-512 tools: `profile_prove.run` (verify-with-NTT, 81,460
+  constraints, a fresh setup) with the four G1 MSMs (n_pad 2^17) on the
+  card, each equal to the native C's and split into host recode, device
+  window sums and host fold, the proof identical to the native C prover's
+  with the same r and s; `prove_batch.run` at K = 4 (the K witnesses from
+  one engine call, K1 twice) on gpu and native, every proof equal to its
+  native single prove; `pp_vs_dp.run` over 2 ranks, refused on one card.
 
 It builds the kernels from csrc/, checks that each path launched its
 kernels (counts set to 0 just before the path, read just after), holds
@@ -94,6 +101,8 @@ TIMING_REPS = 20
 # (tools.prove_batch_large), the first to shrink if the smoke nears its limit
 LARGE_KS = (1, 2, 4)
 LARGE_BATCH_K = 2
+# the tools phase's batch (tools.prove_batch, Falcon-512)
+TOOLS_BATCH_K = 4
 # the CLI phase's commands, run in-process on the card (the default device)
 CLI_COMMANDS = (["selftest"], ["verify", "1024"], ["aggregate", "--n", "1024", "--k", "1024"],
                 ["pok-sig", "1024", "--g1-backend", "gpu"],
@@ -840,59 +849,36 @@ def large_prove(dev, counted, which, witness_launches, seed):
 
 def msm_stages(dev, counted, pts, sc, name):
     """One warm g1_msm_gpu over `pts` (their Montgomery form cached)
-    against the native C, then where its time goes: the host recode, the
-    device window sums (CUDA events, 3 samples each in turns, with their
-    peak device memory) at the card's group (a quarter of its memory) and
+    against the native C, then where its time goes, by
+    tools.profile_prove.msm_split: the host recode, the device window sums
+    (CUDA events, 3 samples each in turns, with their peak device memory)
+    at the card's group (a quarter of its memory) and, where it differs,
     at the group of the 6 GB rule (the JAX engine's, the port's before),
     their kernels under the profiler, the host fold."""
-    from falcon_r1cs_tpu_torch.snark import gpu_msm, native_backend
+    from falcon_r1cs_tpu_torch.snark import gpu_msm
+    from falcon_r1cs_tpu_torch.tools import profile_prove
 
-    t0 = time.perf_counter()
-    want = native_backend.g1_msm(pts, sc)
-    nat_s = time.perf_counter() - t0
-    got, warm_s, d = counted_run(counted, lambda: gpu_msm.g1_msm_gpu(pts, sc))
-    assert got == want, f"MSM {name} != native"
-    assert d == msm_launches(counted, len(pts)), d
     n_pad = max(8, 1 << (len(pts) - 1).bit_length())
     nw = (255 + gpu_msm.WINDOW - 1) // gpu_msm.WINDOW
-    t0 = time.perf_counter()
-    digits = gpu_msm._pad_digits(gpu_msm._window_digits_signed(sc, gpu_msm.WINDOW), n_pad)
-    recode_s = time.perf_counter() - t0
-    digits = torch.from_numpy(digits).to(dev)
-    Xm, Ym = gpu_msm._points_mont(pts, n_pad, dev)
     default = gpu_msm._group_windows(n_pad, nw, device=dev)
-    groups = (default, gpu_msm._group_windows(n_pad, nw))
-
-    def sums(G):
-        return gpu_msm._window_sums(digits, Xm, Ym, gpu_msm.WINDOW, G)
-
-    peaks, times = {}, {G: [] for G in groups}
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated() / 2**30
-    for G in groups:
-        torch.cuda.reset_peak_memory_stats()
-        ws = sums(G)
-        torch.cuda.synchronize()
-        peaks[G] = torch.cuda.max_memory_allocated() / 2**30 - held
-        if G == default:
-            t0 = time.perf_counter()
-            gpu_msm._fold_windows_host(ws, nw, 1, gpu_msm.WINDOW)
-            fold_s = time.perf_counter() - t0
-        del ws
-    for rep in range(3):
-        for G in groups if rep % 2 == 0 else groups[::-1]:
-            times[G].append(cuda_ms(lambda: sums(G), reps=1, inner=1, warmup=0))
+    groups = tuple(dict.fromkeys((default, gpu_msm._group_windows(n_pad, nw))))
+    sp, _, d = counted_run(counted, lambda: profile_prove.msm_split(
+        pts, sc, dev, groups=groups, samples=3))
+    want = msm_launches(counted, len(pts))
+    assert sp["launches"] == {k: want[k] for k in sp["launches"]}, sp["launches"]
+    assert not any(v for k, v in d.items() if k not in sp["launches"]), d
     for G in groups:
         log(f"MSM {name} n={len(pts)} window sums, {G} window(s) a group ({nw // G} groups): "
-            f"{', '.join(f'{t:.1f}' for t in times[G])} ms (CUDA events, in turns); peak "
-            f"device memory {peaks[G]:.2f} GiB over the {held:.2f} GiB held before")
-    sums_ms = statistics.median(times[default])
-    wall, busy, top, _ = device_kernel_ms(lambda: sums(default))
-    log(f"MSM {name} n={len(pts)}: gpu warm {warm_s:.3f} s, native C {nat_s:.3f} s, equal; "
-        f"host recode {recode_s * 1e3:.1f} ms, device window sums {sums_ms:.1f} ms "
-        f"({default} windows a group), host fold {fold_s * 1e3:.1f} ms; kernels busy "
-        f"{busy:.1f} ms (idle share {1 - busy / sums_ms:.3f}; {wall:.1f} ms wall under the "
-        "profiler)")
+            f"{', '.join(f'{t:.1f}' for t in sp['sums_ms'][G])} ms (CUDA events, in turns); "
+            f"peak device memory {sp['peak_gib'][G]:.2f} GiB over the {sp['held_gib']:.2f} GiB "
+            "held before")
+    sums_ms = statistics.median(sp["sums_ms"][default])
+    wall, busy, top, _ = device_kernel_ms(lambda: sp["window_sums"](default))
+    log(f"MSM {name} n={len(pts)}: gpu warm {sp['gpu_ms'] / 1e3:.3f} s, native C "
+        f"{sp['native_ms'] / 1e3:.3f} s, equal; host recode {sp['recode_ms']:.1f} ms, device "
+        f"window sums {sums_ms:.1f} ms ({default} windows a group), host fold "
+        f"{sp['fold_ms']:.1f} ms; kernels busy {busy:.1f} ms (idle share "
+        f"{1 - busy / sums_ms:.3f}; {wall:.1f} ms wall under the profiler)")
     for key, ms, count in top:
         log(f"  {ms:9.3f} ms  x{count:<5d} {key}")
 
@@ -978,6 +964,121 @@ def large_phase(dev, counted, h_points):
         return d
 
     steps["batch dual-1024 K=2"] = step("batch dual-1024", batch)
+    return {k: {name: v for name, v in d.items() if v} for k, d in steps.items()}
+
+
+@contextlib.contextmanager
+def artifacts_in(path):
+    """The port's artifact directory (the COO and CRS caches) in `path`
+    for the block, so that the smoke writes nothing into the user's."""
+    from pathlib import Path
+
+    from falcon_r1cs_tpu_torch.r1cs import coo
+    from falcon_r1cs_tpu_torch.tools import prove_large
+
+    saved = coo.cache_dir, prove_large.cache_dir
+    coo.cache_dir = prove_large.cache_dir = lambda: Path(path)
+    try:
+        yield
+    finally:
+        coo.cache_dir, prove_large.cache_dir = saved
+
+
+def tools_phase(dev, counted):
+    """The Falcon-512 tools on the card, every count set to 0 just before
+    each step and read just after, the artifact directory a temp dir:
+    tools.profile_prove with g1_backend="gpu" (a fresh setup from fixed
+    toxic waste; each G1 MSM equal to the native C's, with its split; K4
+    4, the CRS conversion; K5 and K6 five MSM runs a query: the warm-up
+    prove, the split's whole MSM, warm-up and sample, the whole prove) and
+    with "native" on the same key, r and s: identical proofs that verify;
+    msm_stages at its h query (n_pad 2^17);
+    tools.prove_batch at K = TOOLS_BATCH_K on gpu (K1 2, one engine call
+    at n = 512; K4 0; K5 and K6 the MSMs of 2 + 1 + K proves) and native
+    (K1 2 only) with the same r and s: identical proofs, each equal to the
+    native C's single prove; tools.pp_vs_dp over 2 ranks: refused with
+    the card count on one card, over NCCL on two.  Returns {step:
+    launches}."""
+    import tempfile
+
+    from falcon_r1cs_tpu_torch.snark import groth16, gpu_msm, native_backend
+    from falcon_r1cs_tpu_torch.snark.bls12_381 import R
+    from falcon_r1cs_tpu_torch.tools import pp_vs_dp, profile_prove, prove_batch
+
+    def draw(rng, k):
+        return [int.from_bytes(rng.bytes(32), "little") % (R - 1) + 1 for _ in range(k)]
+
+    rng = np.random.default_rng(20261025)
+    toxic, (r, s) = groth16.SetupToxic(*draw(rng, 5)), draw(rng, 2)
+    K = TOOLS_BATCH_K
+    rs, ss = draw(rng, K), draw(rng, K)
+    steps = {}
+    with tempfile.TemporaryDirectory(prefix="falcon_smoke_") as tmp, artifacts_in(tmp):
+        t = time.perf_counter()
+        prof, _, d = counted_run(counted, lambda: profile_prove.run(
+            1, "gpu", dev, toxic=toxic, r=r, s=s, log=sublog))
+        pk, compiled, z = prof["pk"], prof["compiled"], prof["assignment"]
+        h, _ = native_backend.witness_map(compiled, z)
+        four = {"a": pk.a_query, "b_g1": pk.b_g1_query, "l": pk.l_query, "h": pk.h_query}
+        pads = {name: max(8, 1 << (len(p) - 1).bit_length()) for name, p in four.items()}
+        nw = (255 + gpu_msm.WINDOW - 1) // gpu_msm.WINDOW
+        groups = {name: gpu_msm._group_windows(n_pad, nw, device=dev)
+                  for name, n_pad in pads.items()}
+        expect = {k: 5 * sum(msm_launches(counted, len(p))[k] for p in four.values())
+                  for k in counted} | {"mont_mul_kernel": len(four)}
+        assert d == expect, (d, expect)
+        steps["profile_prove gpu"] = d
+        native, _, d_native = counted_run(counted, lambda: profile_prove.run(
+            1, "native", dev, pk=pk, r=r, s=s, log=sublog))
+        assert d_native == dict.fromkeys(counted, 0), d_native
+        got, want = prof["proof"], native["proof"]
+        assert (got.a, got.b, got.c) == (want.a, want.b, want.c), "Falcon-512: gpu proof != native"
+        log(f"profile_prove Falcon-512 (81,460 constraints): prove (total) gpu "
+            f"{prof['ms']['prove (total)']:.1f} ms, native {native['ms']['prove (total)']:.1f} "
+            f"ms; identical proofs, verify True; MSM points "
+            f"{ {k: len(p) for k, p in four.items()} }, n_pad {pads}, windows a group "
+            f"{groups}; launches {({k: v for k, v in d.items() if v})}; "
+            f"{time.perf_counter() - t:.1f} s")
+        msm_stages(dev, counted, four["h"], h, "h (Falcon-512)")
+
+        t = time.perf_counter()
+        runs = {}
+        for backend in ("gpu", "native"):
+            runs[backend] = counted_run(counted, lambda: prove_batch.run(
+                K, 1, backend, dev, rs=rs, ss=ss, pk=pk, log=sublog))
+        (gpu, _, d), (nat, _, d_native) = runs["gpu"], runs["native"]
+        proves = 2 + 1 + K  # the warm-up batch, the single, the batch
+        expect = {k: proves * sum(msm_launches(counted, len(p))[k] for p in four.values())
+                  for k in counted} | {"ntt_hints_kernel": 2}
+        assert d == expect, (d, expect)
+        assert d_native == dict.fromkeys(counted, 0) | {"ntt_hints_kernel": 2}, d_native
+        steps[f"prove_batch gpu K={K}"], steps[f"prove_batch native K={K}"] = d, d_native
+        assert [(p.a, p.b, p.c) for p in gpu["proofs"]] == \
+            [(p.a, p.b, p.c) for p in nat["proofs"]], "batch: gpu proofs != native"
+        for k, zk in enumerate(nat["assignments"]):
+            single = groth16.prove(pk, compiled, zk, r=rs[k], s=ss[k], g1_backend="native")
+            assert (single.a, single.b, single.c) == (nat["proofs"][k].a, nat["proofs"][k].b,
+                                                      nat["proofs"][k].c), f"batch proof {k}"
+        log(f"prove_batch Falcon-512 K={K}: gpu {gpu['per_proof_s']:.3f} s/proof (single "
+            f"{gpu['single_s']:.3f} s, {gpu['speedup']:.2f}x K singles), native "
+            f"{nat['per_proof_s']:.3f} s/proof (single {nat['single_s']:.3f} s, "
+            f"{nat['speedup']:.2f}x); every batch proof == its single prove and verifies, "
+            f"tampered input rejected; {time.perf_counter() - t:.1f} s")
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        try:
+            pp_vs_dp.run(2, device=dev, log=sublog)
+        except ValueError as e:
+            assert f"this host has {cards}" in str(e), e
+            log(f"pp_vs_dp S=2 on cuda refused on {cards} card: {e}")
+        else:
+            raise AssertionError("pp_vs_dp ran 2 ranks on one card")
+    else:
+        pp = pp_vs_dp.run(2, device=dev, log=sublog)
+        log(f"pp_vs_dp S=2 over NCCL: PP {pp['pp_ms']:.2f} ms, DP {pp['dp_ms']:.2f} ms "
+            f"(best of 5; medians {pp['pp_median_ms']:.2f}, {pp['dp_median_ms']:.2f}), "
+            f"{pp['ratio']:.2f}x; equal")
     return {k: {name: v for name, v in d.items() if v} for k, d in steps.items()}
 
 
@@ -1599,11 +1700,12 @@ def main():
     sharded = phase("parallel", parallel_phase, port, dev, insts, out, rs, instance, packed,
                     h_msm, path_counted)
     large = phase("large prover", large_phase, dev, path_counted, h_msm[0])
+    tools = phase("tools", tools_phase, dev, path_counted)
     for rec in records:
-        rec["sharded_launches"] = {path: counts[rec["name"]]
-                                   for path, counts in sharded.items() if rec["name"] in counts}
-        rec["large_launches"] = {path: counts[rec["name"]]
-                                 for path, counts in large.items() if rec["name"] in counts}
+        for key, steps in (("sharded_launches", sharded), ("large_launches", large),
+                           ("tools_launches", tools)):
+            rec[key] = {path: counts[rec["name"]]
+                        for path, counts in steps.items() if rec["name"] in counts}
 
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "falcon_r1cs_tpu")]
     assert not loaded, f"the port loaded JAX or the JAX package: {loaded}"

@@ -33,7 +33,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..circuits import FalconDualNTTVerificationCircuit, FalconSchoolBookVerificationCircuit
+from ..circuits import (
+    FalconDualNTTVerificationCircuit,
+    FalconNTTVerificationCircuit,
+    FalconSchoolBookVerificationCircuit,
+)
 from ..examples.pok_sig import synchronize
 from ..falcon import make_instance, ntt
 from ..params import Q, get_params
@@ -66,23 +70,36 @@ class Stages:
         return out
 
 
-def engine_inputs(which: str, insts):
-    """The (B, n) int32 engine inputs of the JAX tool: schoolbook (sig
-    lifted to [0, q), pk, hm), dual (sig signed, ntt(pk), ntt(hm)).  The
-    last two are the public inputs."""
-    if which == "schoolbook":
+def circuit_class(which):
+    """`which`: a CIRCUITS key, or a circuit class (the verify-with-NTT
+    circuit of the Falcon-512 tools, which is not a `which` choice)."""
+    return CIRCUITS[which] if isinstance(which, str) else which
+
+
+def engine_inputs(which, insts):
+    """The (B, n) int32 engine inputs of the JAX tools: schoolbook (sig
+    lifted to [0, q), pk, hm), dual (sig signed, ntt(pk), ntt(hm)),
+    verify-with-NTT (sig lifted, ntt(pk), ntt(hm);
+    tools/bench_prove_batch.py).  The last two are the public inputs."""
+    cls = circuit_class(which)
+    if cls is FalconSchoolBookVerificationCircuit:
         cols = [(i.sig_lifted, i.h, i.hm) for i in insts]
-    else:
+    elif cls is FalconDualNTTVerificationCircuit:
         cols = [(i.sig_signed, ntt(i.h), ntt(i.hm)) for i in insts]
+    elif cls is FalconNTTVerificationCircuit:
+        cols = [(i.sig_lifted, ntt(i.h), ntt(i.hm)) for i in insts]
+    else:
+        raise TypeError(f"no engine inputs for {cls!r}")
     return tuple(np.stack(c).astype(np.int32) for c in zip(*cols))
 
 
-def assignments(which: str, insts, device):
-    """The witnesses of `insts` on `device`, one engine and one packer call
-    over the batch: (each instance's public inputs, its full assignment
-    as (N, 4) u64 limb rows)."""
+def assignments(which, insts, device):
+    """The witnesses of `insts` (circuit `which`: a CIRCUITS key or a
+    circuit class) on `device`, one engine and one packer call over the
+    batch: (each instance's public inputs, its full assignment as (N, 4)
+    u64 limb rows)."""
     dev = torch.device(device)
-    cw = circuit_witness(CIRCUITS[which], insts[0].params.n, dev)
+    cw = circuit_witness(circuit_class(which), insts[0].params.n, dev)
     sig, pk_in, hm_in = engine_inputs(which, insts)
     seg = cw.engine(*(torch.from_numpy(a).to(dev) for a in (sig, pk_in, hm_in)))
     packed = cw.pack(seg).cpu().numpy()
@@ -94,12 +111,13 @@ def assignments(which: str, insts, device):
     return publics, rows
 
 
-def crs_path(which: str, n: int) -> Path:
-    """The CRS's place in the port's artifact directory."""
-    return cache_dir() / f"{CIRCUITS[which].__name__}_{n}.pk.npz"
+def crs_path(which, n: int) -> Path:
+    """The CRS's place in the port's artifact directory (the JAX
+    package's name for it in its own)."""
+    return cache_dir() / f"{circuit_class(which).__name__}_{n}.pk.npz"
 
 
-def proving_key(compiled, which: str, n: int, timed: Stages, crs=None,
+def proving_key(compiled, which, n: int, timed: Stages, crs=None,
                 save_crs: bool = False, toxic=None):
     """The proving key: loaded from `crs` (a .pk.npz saved by either
     package), else from the port's artifact directory unless fixed toxic

@@ -69,7 +69,8 @@ def test_port_loads_no_jax_package():
     assert "falcon_r1cs_tpu_torch.snark.gpu_msm" in mods
     assert "falcon_r1cs_tpu_torch.circuits.falcon_ntt" in mods
     assert {f"falcon_r1cs_tpu_torch.tools.{m}"
-            for m in ("prove_large", "prove_batch_large", "msm_multi")} <= set(mods)
+            for m in ("prove_large", "prove_batch_large", "msm_multi", "profile_prove",
+                      "prove_batch", "pp_vs_dp")} <= set(mods)
 
 
 @pytest.mark.parametrize("name", sorted(GOLDEN_512))

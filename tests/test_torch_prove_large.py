@@ -26,7 +26,14 @@ from falcon_r1cs_tpu_torch import FALCON_512
 from falcon_r1cs_tpu_torch.falcon import make_instance
 from falcon_r1cs_tpu_torch.r1cs import coo
 from falcon_r1cs_tpu_torch.snark import R, groth16, gpu_msm
-from falcon_r1cs_tpu_torch.tools import msm_multi, prove_batch_large, prove_large
+from falcon_r1cs_tpu_torch.tools import (
+    msm_multi,
+    pp_vs_dp,
+    profile_prove,
+    prove_batch,
+    prove_batch_large,
+    prove_large,
+)
 from falcon_r1cs_tpu_torch.utils.device import DeviceUnavailableError
 
 TOXIC = dict(tau=1234567, alpha=7654321, beta=1111111, gamma=2222221, delta=3333331)
@@ -289,6 +296,9 @@ def test_half_digit_scalars_hit_half():
     (prove_large, ["dual", "--n", "512"]),
     (prove_batch_large, ["dual", "2", "--n", "512"]),
     (msm_multi, ["--n", "512", "--k", "1"]),
+    (profile_prove, ["1", "--g1-backend", "native"]),
+    (prove_batch, ["2", "1", "--g1-backend", "native"]),
+    (pp_vs_dp, ["2", "512", "4", "4"]),
 ])
 def test_tools_default_to_the_card(tool, argv, monkeypatch, capsys):
     """Without a card each tool's run raises DeviceUnavailableError and its
