@@ -12,7 +12,7 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
   (1,150,004 witnesses of 8 limbs each) -> CRT verdict plus field rows;
 - the Groth16 path: one signature of the main path's batch -> its packed
   witness as prover scalars -> `prove(g1_backend="gpu")`, whose four G1
-  MSMs (n_pad = 2^18) run on the Fq kernels, against the native C prover
+  MSMs (n_pad = 2^18) run on the recode and Fq kernels, against the native C prover
   with the same r and s; each MSM against the native C MSM;
 - the semi-carry hint path: `ntt_with_hints_v3` on 1024 rows of
   Falcon-1024 coefficients, one launch of the semi-carry kernel (its
@@ -46,7 +46,7 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
   on native with the same r and s, identical proofs;
 - the Falcon-512 tools: `profile_prove.run` (verify-with-NTT, 81,460
   constraints, a fresh setup) with the four G1 MSMs (n_pad 2^17) on the
-  card, each equal to the native C's and split into host recode, device
+  card, each equal to the native C's and split into device recode, device
   window sums and host fold, the proof identical to the native C prover's
   with the same r and s; `prove_batch.run` at K = 4 (the K witnesses from
   one engine call, K1 twice) on gpu and native, every proof equal to its
@@ -59,7 +59,9 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
 It builds the kernels from csrc/, checks that each path launched its
 kernels (counts set to 0 just before the path, read just after), holds
 each kernel against its plain torch version on the card (all integer
-arithmetic: bit-exact, except the Fq kernels K4, K5 and K6, whose
+arithmetic: bit-exact, the MSM's recode kernel at 2^17 and 2^21 points
+(K = 1 and 4, infinity points, its overflow flag) included, except the
+Fq kernels K4, K5 and K6, whose
 coordinates must agree mod q, compared in canonical form, and whose flags
 must be equal; K5 and K6 also on rows far from canonical; K1 and K2 also
 on rows of all q - 1, all 0 and one-hot), and times both with CUDA events,
@@ -420,15 +422,16 @@ def k5_per_group(n_pad: int, window: int) -> int:
 def msm_launches(counted, n: int, K: int = 1) -> dict:
     """The launches of one MSM (K = 1, g1_msm_gpu) or one K-fold MSM
     (g1_msm_gpu_multi) over n cached points at the default window (+1 K4
-    when the point set is new): K6 once and K5 k5_per_group times a
-    window group, the K x 22 windows in groups of _group_windows."""
+    when the point set is new): the recode once, K6 once and K5
+    k5_per_group times a window group, the K x 22 windows in groups of
+    _group_windows."""
     from falcon_r1cs_tpu_torch.snark import gpu_msm
 
     nw = K * ((255 + gpu_msm.WINDOW - 1) // gpu_msm.WINDOW)
     n_pad = max(8, 1 << (n - 1).bit_length())  # 2^18 at Falcon-1024
     groups = nw // gpu_msm._group_windows(n_pad, nw, device="cuda")
     return dict.fromkeys(counted, 0) | {
-        "point_add_aff_kernel": groups,
+        "signed_digits_kernel": 1, "point_add_aff_kernel": groups,
         "point_add_kernel": groups * k5_per_group(n_pad, gpu_msm.WINDOW)}
 
 
@@ -537,7 +540,7 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
     log(f"G1 MSM peak device memory {peak_gib:.2f} GiB, of which {held_gib:.2f} GiB "
         "held before")
 
-    # where one warm MSM's time goes: host recode, device window sums, host fold
+    # where one warm MSM's time goes: device recode, device window sums, host fold
     msm_stages(dev, counted, pk.h_query, h, "h")
     return launches, (pk.h_query, h)
 
@@ -653,7 +656,8 @@ def cli_phase(dev, counted):
             assert runs[cmd][1].get("ntt_hints_kernel", 0) > 0, (cmd, runs[cmd])
         if "gpu" in argv:
             assert all(runs[cmd][1].get(k, 0) > 0 for k in (
-                "mont_mul_kernel", "point_add_kernel", "point_add_aff_kernel")), (cmd, runs[cmd])
+                "signed_digits_kernel", "mont_mul_kernel", "point_add_kernel",
+                "point_add_aff_kernel")), (cmd, runs[cmd])
     step, args = entry(dev)
     got, seconds, launches = counted_run(counted, lambda: step(*args))
     assert launches == dict.fromkeys(counted, 0) | {"ntt_hints_kernel": 2}, launches
@@ -843,10 +847,16 @@ def large_prove(dev, counted, which, witness_launches, seed):
     return out, launches, msms
 
 
+# the device recode's ms (host clock to a synchronise, the scalar upload
+# included) of each msm_stages call, by n_pad: the recode record reports them
+MSM_RECODE_MS = {}
+
+
 def msm_stages(dev, counted, pts, sc, name):
     """One warm g1_msm_gpu over `pts` (their Montgomery form cached)
     against the native C, then where its time goes, by
-    tools.profile_prove.msm_split: the host recode, the device window sums
+    tools.profile_prove.msm_split: the device recode (into
+    MSM_RECODE_MS), the device window sums
     (CUDA events, 3 samples each in turns, with their peak device memory)
     at the card's group (a quarter of its memory) and, where it differs,
     at the group of the 6 GB rule (the JAX engine's, the port's before),
@@ -863,6 +873,7 @@ def msm_stages(dev, counted, pts, sc, name):
     want = msm_launches(counted, len(pts))
     assert sp["launches"] == {k: want[k] for k in sp["launches"]}, sp["launches"]
     assert not any(v for k, v in d.items() if k not in sp["launches"]), d
+    MSM_RECODE_MS.setdefault(n_pad, []).append(sp["recode_ms"])
     for G in groups:
         log(f"MSM {name} n={len(pts)} window sums, {G} window(s) a group ({nw // G} groups): "
             f"{', '.join(f'{t:.1f}' for t in sp['sums_ms'][G])} ms (CUDA events, in turns); "
@@ -871,7 +882,8 @@ def msm_stages(dev, counted, pts, sc, name):
     sums_ms = statistics.median(sp["sums_ms"][default])
     wall, busy, top, _ = device_kernel_ms(lambda: sp["window_sums"](default))
     log(f"MSM {name} n={len(pts)}: gpu warm {sp['gpu_ms'] / 1e3:.3f} s, native C "
-        f"{sp['native_ms'] / 1e3:.3f} s, equal; host recode {sp['recode_ms']:.1f} ms, device "
+        f"{sp['native_ms'] / 1e3:.3f} s, equal; device recode {sp['recode_ms']:.2f} ms "
+        f"(the scalar upload included), device "
         f"window sums {sums_ms:.1f} ms ({default} windows a group), host fold "
         f"{sp['fold_ms']:.1f} ms; kernels busy {busy:.1f} ms (idle share "
         f"{1 - busy / sums_ms:.3f}; {wall:.1f} ms wall under the profiler)")
@@ -969,7 +981,8 @@ def tools_phase(dev, counted):
     tools.profile_prove with g1_backend="gpu" (a fresh setup from fixed
     toxic waste; each G1 MSM equal to the native C's, with its split; K4
     4, the CRS conversion; K5 and K6 five MSM runs a query: the warm-up
-    prove, the split's whole MSM, warm-up and sample, the whole prove) and
+    prove, the split's whole MSM, warm-up and sample, the whole prove; the
+    recode four: the same but for the sample's, and the split's own) and
     with "native" on the same key, r and s: identical proofs that verify;
     msm_stages at its h query (n_pad 2^17);
     tools.prove_batch at K = TOOLS_BATCH_K on gpu (K1 2, one engine call
@@ -1005,7 +1018,8 @@ def tools_phase(dev, counted):
         groups = {name: gpu_msm._group_windows(n_pad, nw, device=dev)
                   for name, n_pad in pads.items()}
         expect = {k: 5 * sum(msm_launches(counted, len(p))[k] for p in four.values())
-                  for k in counted} | {"mont_mul_kernel": len(four)}
+                  for k in counted} | {"mont_mul_kernel": len(four),
+                                       "signed_digits_kernel": 4 * len(four)}
         assert d == expect, (d, expect)
         steps["profile_prove gpu"] = d
         native, _, d_native = counted_run(counted, lambda: profile_prove.run(
@@ -1069,13 +1083,13 @@ def bench_phase(counted):
     cell's end-to-end, set-up and per-layer metrics that BENCHMARK.json
     names printed on its last line, each with a positive value; the cell's
     kernels launched (the main path K1; the prove K1 for its assignment,
-    K4 for the CRS conversion, K5 and K6).  Returns {step: launches}."""
+    K4 for the CRS conversion, the recode, K5 and K6).  Returns {step: launches}."""
     import bench_torch
 
     spec = json.loads((Path(__file__).resolve().parent / "BENCHMARK.json").read_text())
     kernels = {bench_torch.WIRE: ("ntt_hints_kernel",),
-               bench_torch.PROVE: ("ntt_hints_kernel", "mont_mul_kernel", "point_add_kernel",
-                                   "point_add_aff_kernel")}
+               bench_torch.PROVE: ("ntt_hints_kernel", "signed_digits_kernel", "mont_mul_kernel",
+                                   "point_add_kernel", "point_add_aff_kernel")}
     steps = {}
     for cell in spec["workloads"]:
         name = cell["name"]
@@ -1229,17 +1243,21 @@ def ptxas(build_log, kernel, threads, dyn_smem=0):
     return stats
 
 
-def kernel_device_ms(wrapper, args, kernel, calls=10, tries=3):
+def kernel_device_ms(wrapper, args, kernel, calls=10, tries=3, alone=False):
     """The kernel alone: profiler device ms a launch, from a window of
     `calls` wrapper calls that caught exactly `calls` launches of the
     kernels whose names hold `kernel`.  The profiler can drop rows, so up
     to `tries` windows are taken; raises if none was whole.  The CUDA-event
     time of back-to-back wrapper calls is the longer of this and the
-    wrapper's host cost a call."""
+    wrapper's host cost a call.  The device time is every kernel's of the
+    window, or with `alone` only those rows' (a wrapper that also fills a
+    tensor, as the recode's flag)."""
     for _ in range(tries):
         _, busy, rows, _ = device_kernel_ms(lambda: [wrapper(*args) for _ in range(calls)],
                                          keep=(kernel,))
         caught = sum(c for key, _, c in rows if kernel in key)
+        if alone:
+            busy = sum(ms for key, ms, _ in rows if kernel in key)
         if caught == calls:
             return busy / calls
     raise RuntimeError(f"{calls} launches of {kernel} expected, the profiler caught {rows}")
@@ -1269,6 +1287,79 @@ def select_path_rows(m, dev, seed=20261019):
     inf2[128:160] = True
     one = fq_mont.consts(dev)["one"][:, None].expand(fq_mont.NL, m).contiguous()
     return (X, Y, one, inf1), (X2, Y2, one.clone(), inf2)
+
+
+# int32 operations of one digit of the recode, counted from
+# csrc/msm_recode.cu: two 64-bit shifts, an or and a mask (two words each:
+# 8), the carry add, the compare, the select and the packing or (4)
+RECODE_OPS_A_DIGIT = 12
+
+
+def recode_kernel_vs_plain(dev, launches, build_log):
+    """The recode kernel against its plain version
+    (`ops.msm_recode.signed_digits`, run on the same card tensors), digits
+    and overflow flag bit for bit: window 12 at n = 2^17 - 1 and 2^21 - 1
+    points (the h queries of a Falcon-512 prove and of schoolbook-1024;
+    n_pad 2^17 and 2^21), K = 1 and 4, random scalars below 2^255 whose
+    limbs 0-2 span the full u64 range (top bits set), rows 0, r - 1 and
+    all ones below 2^255, every 97th point infinite; window 5 over the
+    2^17 rows (51 x 5 = 255 bits: r - 1 and the all-ones rows carry out of
+    the top window, so the flag is set, as in its plain version).  Times
+    at K = 1: CUDA events of the wrapper, the plain version, profiler
+    device ms; bound: the bytes (scalars, mask read, digits written) over
+    the card's rate; its ptxas line."""
+    from falcon_r1cs_tpu_torch.ops import msm_recode
+    from falcon_r1cs_tpu_torch.snark.bls12_381 import R
+
+    wrapper = msm_recode.signed_digits_cuda
+    window = 12
+    rng = np.random.default_rng(20261026)
+    out = {}
+    for log_n in (17, 21):
+        n_pad = 1 << log_n
+        n = n_pad - 1
+        for K in (1, 4):
+            sc = rng.integers(0, 2**64, size=(K, n, 4), dtype=np.uint64)
+            sc[..., 3] >>= np.uint64(1)
+            sc[:, 0] = 0
+            sc[:, 1] = [(R - 1) >> (64 * j) & (2**64 - 1) for j in range(4)]
+            sc[:, 2] = [2**64 - 1] * 3 + [2**63 - 1]
+            sc = torch.from_numpy(sc.view(np.int64)).to(dev)
+            inf = torch.zeros(n, dtype=torch.bool, device=dev)
+            inf[5::97] = True
+            args = (sc if K > 1 else sc[0], inf)
+            windows = (window, 5) if (log_n, K) == (17, 1) else (window,)
+            for w in windows:
+                got = wrapper(*args, w, n_pad)
+                torch.cuda.synchronize()
+                want = wrapper.plain(*args, w, n_pad)
+                assert all(g.dtype == h.dtype and torch.equal(g, h) for g, h in zip(got, want)), \
+                    f"recode kernel n={n} K={K} w={w} differs from its plain version"
+                assert got[1].item() == (w == 5), f"overflow flag {got[1].item()} at w={w}"
+            if K > 1:
+                continue
+            ms = cuda_ms(lambda: wrapper(*args, window, n_pad))
+            plain_ms = cuda_ms(lambda: wrapper.plain(*args, window, n_pad), reps=5, inner=1)
+            dev_ms = kernel_device_ms(wrapper, (*args, window, n_pad), "signed_digits_kernel",
+                                      alone=True)
+            nw = msm_recode.n_windows(window)
+            nbytes = 32 * n + n + 4 * nw * n_pad + 4
+            ops = RECODE_OPS_A_DIGIT * nw * n_pad
+            bound_ms, bound_by = bound(nbytes, ops)
+            log(f"signed_digits_kernel n={n} (n_pad 2^{log_n}) w={window}: kernel {ms:.4f} ms "
+                f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}); bit-equal with the flag, K = 1 and 4, w = 5 overflow flagged")
+            out[log_n] = (ms, plain_ms, dev_ms, nbytes, ops)
+    ms, plain_ms, dev_ms, nbytes, ops = out[17]
+    big = out[21]
+    return record(
+        "signed_digits_kernel", "falcon_r1cs_tpu_torch/csrc/msm_recode.cu",
+        "none: the JAX package recodes on the host (falcon_r1cs_tpu/snark/tpu_msm.py:813)",
+        launches, 0, ms, plain_ms, nbytes, ops, device_ms=dev_ms,
+        **ptxas(build_log, "signed_digits_kernel", 256),
+        n_pad_2e21={"ms": big[0], "plain_ms": big[1], "device_ms": big[2],
+                    "bound_ms": bound(big[3], big[4])[0]},
+    )
 
 
 def fq_kernels_vs_plain(dev, launches, build_log):
@@ -1464,7 +1555,7 @@ def main():
         make_instance,
         ntt,
     )
-    from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, ntt_v3
+    from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, msm_recode, ntt_v3
     from falcon_r1cs_tpu_torch.ops.ntt_limb import intt_then_hints
     from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods_cuda
     from falcon_r1cs_tpu_torch.witness import packer_ntt, witness_engine
@@ -1584,6 +1675,7 @@ def main():
         counted, schoolbook_prods_kernel=schoolbook_prods_cuda,
         mont_mul_kernel=fq.mont_mul_cuda, point_add_kernel=fq.point_add_cuda,
         point_add_aff_kernel=fq.point_add_aff_cuda, ntt_semi_kernel=ntt_v3.ntt_semi_cuda,
+        signed_digits_kernel=msm_recode.signed_digits_cuda,
     )
     log(f"phase main path: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1696,6 +1788,7 @@ def main():
     log("  launch path, host us a call of each step: "
         + "; ".join(f"{k} {v:.2f}" for k, v in costs.items()))
     records += fq_kernels_vs_plain(dev, g16_launches, build_log)
+    records.append(recode_kernel_vs_plain(dev, g16_launches["signed_digits_kernel"], build_log))
     records.append(semi_kernel_vs_plain(dev, semi_launches, build_log))
 
     # device part of the main path alone: engine + packer on uploaded inputs
@@ -1722,6 +1815,10 @@ def main():
     tools = phase("tools", tools_phase, dev, path_counted)
     bench = phase("bench", bench_phase, path_counted)
     for rec in records:
+        if rec["name"] == "signed_digits_kernel":
+            rec["path_recode_ms"] = {f"n_pad 2^{n.bit_length() - 1}": ms
+                                     for n, ms in sorted(MSM_RECODE_MS.items())}
+            assert len(MSM_RECODE_MS) == 3, MSM_RECODE_MS  # 2^17, 2^18, 2^21
         for key, steps in (("sharded_launches", sharded), ("large_launches", large),
                            ("tools_launches", tools), ("bench_launches", bench)):
             rec[key] = {path: counts[rec["name"]]

@@ -6,12 +6,14 @@ The port of the JAX package's wide-tree Pallas engine
 `tpu_msm.g1_msm_tpu` with Pallas on) and of its host helpers in
 `falcon_r1cs_tpu/snark/tpu_msm.py`.  Per MSM:
 
-- host: scalars -> signed window digits (magnitude | sign << w, buckets
-  1..2^(w-1)); the scalars of infinity points are zeroed, so a leaf is
-  infinite iff its digit is 0;
 - device, once per point set: the CRS points to Montgomery limb-major
-  (35, n) tensors by K4 (`to_mont` = mont_mul by R^2), cached on the
-  G1Array;
+  (35, n) tensors by K4 (`to_mont` = mont_mul by R^2) and the infinity
+  mask, cached on the G1Array;
+- device: the scalars, uploaded as int64, -> signed window digits
+  (magnitude | sign << w, buckets 1..2^(w-1)) by one launch of the
+  recode kernel (`ops/msm_recode.py`, the host's numpy loop in the JAX
+  package); the scalars of infinity points are zeroed, so a leaf is
+  infinite iff its digit is 0;
 - device, per group of G windows: one stable sort of the digits, a
   bit-reversed leaf placement (position p holds sorted element brev(p),
   so every merge level pairs the two contiguous halves), the merge tree
@@ -46,6 +48,7 @@ import torch.distributed as dist
 
 from ..ops import fq_mont as fq
 from ..ops.fq import mont_mul_cuda, point_add_aff_cuda, point_add_cuda
+from ..ops.msm_recode import signed_digits_cuda
 from ..utils.device import rank_device
 from .bls12_381 import P as Q381, R as FR_R
 from .bls12_381 import g1_add, g1_double, g1_from_affine, g1_to_affine
@@ -81,7 +84,8 @@ def _u64_rows_to_limb12(rows: np.ndarray, nl: int | None = None) -> np.ndarray:
 
 
 def _window_digits(scalars_u64: np.ndarray, window: int = WINDOW) -> np.ndarray:
-    """(n, 4) u64 -> (nw, n) int32 window digits."""
+    """(n, 4) u64 -> (nw, n) int32 window digits (the host reference of the
+    recode kernel, as `_window_digits_signed`)."""
     sc = np.ascontiguousarray(scalars_u64, dtype=np.uint64)
     nw = (255 + window - 1) // window
     out = np.zeros((nw, sc.shape[0]), dtype=np.int32)
@@ -437,6 +441,15 @@ def _window_sums(digits, Xm, Ym, window: int, G: int):
     )
 
 
+def _device_key(device) -> str:
+    """The point caches' key of a device: "cuda" and "cuda:<current>"
+    name one card (a caller's device or the digits' tensor device)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return str(device)
+
+
 def _points_mont(points, n_pad: int, device):
     """Montgomery-domain limb-major (35, n_pad) coordinate tensors on
     `device`, converted by one K4 launch (mont_mul by R^2) over X|Y (on the
@@ -444,30 +457,32 @@ def _points_mont(points, n_pad: int, device):
     cached on the G1Array: the prover reuses the same CRS queries for
     every proof (the G1Array must not be mutated after first use)."""
     device = torch.device(device)
-    key = (n_pad, str(device))
-    cache = getattr(points, "_gpu_mont_cache", None)
-    if cache is not None and key in cache:
+    key = (n_pad, _device_key(device))
+    cache = points.__dict__.setdefault("_gpu_mont_cache", {})
+    if key in cache:
         return cache[key]
     xs, ys = _points_std_limbs(points, n_pad)
     std = torch.from_numpy(np.ascontiguousarray(np.concatenate([xs, ys]).T)).to(device)
     r2 = fq.consts(device)["r2"][:, None].expand_as(std).contiguous()
     mont = mont_mul_cuda(std, r2)
     out = (mont[:, :n_pad].contiguous(), mont[:, n_pad:].contiguous())
-    if cache is None:
-        cache = points._gpu_mont_cache = {}
     cache[key] = out
     return out
 
 
-def _fold_windows_host(ws, nw: int, K: int, window: int):
+def _fold_windows_host(ws, nw: int, K: int, window: int, overflow):
     """Horner-fold the per-window part sums on the host, exactly:
     S_{w,k} = sum_p weight_p part_{w,k,p} (weights applied as doublings),
     total_k = sum_w 2^(window w) S_{w,k}, over Jacobian bigints.  Returns
-    K affine tuples / None."""
+    K affine tuples / None.  `overflow`, the recode's flag, is read once
+    the sums are on the host (the device is then idle): a set flag
+    raises."""
     nb = (1 << (window - 1)) + 1
     shifts = [wt.bit_length() - 1 for wt in wsum_weights(nb)]
     P = len(shifts)
     ox, oy, oz, oinf = (t.cpu().numpy() for t in ws)
+    if overflow.item():
+        raise ValueError("signed recode: top-window carry overflow")
     ox = ox.reshape(fq.NL, nw, K, P)
     oy = oy.reshape(fq.NL, nw, K, P)
     oz = oz.reshape(fq.NL, nw, K, P)
@@ -495,37 +510,51 @@ def _fold_windows_host(ws, nw: int, K: int, window: int):
     return out
 
 
-def g1_msm_blocks(points, digits, n_pad: int, window: int, device="cuda",
-                  group: int | None = None):
-    """Single MSM through the wide tree: digits (nw, n_pad) int32 with the
-    scalars of infinity points already zeroed.  Returns an affine point
-    or None."""
-    Xm, Ym = _points_mont(points, n_pad, device)
+def g1_msm_blocks(points, digits, overflow, window: int, group: int | None = None):
+    """Single MSM through the wide tree: device digits (nw, n_pad) int32,
+    zero on the infinity points, and their overflow flag
+    (`_point_digits`).  Returns an affine point or None."""
+    n_pad = digits.shape[1]
+    Xm, Ym = _points_mont(points, n_pad, digits.device)
     nw = digits.shape[0]
     G = _group_windows(n_pad, nw, group, Xm.device)
-    ws = _window_sums(torch.from_numpy(digits).to(Xm.device), Xm, Ym, window, G)
-    return _fold_windows_host(ws, nw, 1, window)[0]
+    ws = _window_sums(digits, Xm, Ym, window, G)
+    return _fold_windows_host(ws, nw, 1, window, overflow)[0]
 
 
-def g1_msm_blocks_multi(points, digits_all, n_pad: int, K: int, window: int,
-                        device="cuda", group: int | None = None):
-    """K MSMs over one point set: digits_all (nw, K, n_pad) int32,
-    flattened w-major so all nw*K windows share one group loop.  Returns
-    a list of K affine points / None."""
-    Xm, Ym = _points_mont(points, n_pad, device)
-    nw = digits_all.shape[0]
-    flat = np.ascontiguousarray(digits_all.reshape(nw * K, n_pad))
+def g1_msm_blocks_multi(points, digits, overflow, K: int, window: int,
+                        group: int | None = None):
+    """K MSMs over one point set: device digits (nw K, n_pad) int32,
+    w-major (row w K + k), so all nw K windows share one group loop.
+    Returns a list of K affine points / None."""
+    n_pad = digits.shape[1]
+    Xm, Ym = _points_mont(points, n_pad, digits.device)
+    nw = digits.shape[0] // K
     G = _group_windows(n_pad, nw * K, group, Xm.device)
-    ws = _window_sums(torch.from_numpy(flat).to(Xm.device), Xm, Ym, window, G)
-    return _fold_windows_host(ws, nw, K, window)
+    ws = _window_sums(digits, Xm, Ym, window, G)
+    return _fold_windows_host(ws, nw, K, window, overflow)
 
 
-def _pad_digits(digits: np.ndarray, n_pad: int) -> np.ndarray:
-    n = digits.shape[-1]
-    if n_pad == n:
-        return digits
-    pad = np.zeros(digits.shape[:-1] + (n_pad - n,), np.int32)
-    return np.concatenate([digits, pad], axis=-1)
+def _points_inf(points, device):
+    """The point set's infinity mask (n,) bool on `device`, uploaded once
+    and cached beside the Montgomery points (`_points_mont`)."""
+    key = ("inf", _device_key(device))
+    cache = points.__dict__.setdefault("_gpu_mont_cache", {})
+    if key not in cache:
+        cache[key] = torch.from_numpy(points.inf.astype(bool)).to(device)
+    return cache[key]
+
+
+def _point_digits(points, scalars, window: int, n_pad: int, device):
+    """(digits, overflow) on `device`: the signed window digits (nw K,
+    n_pad) int32 of the scalars ((n,) or (n, 4) u64, or (K, n, 4) u64 for
+    K MSMs), zero on the infinity points (a leaf is infinite iff its digit
+    is 0) and on the padding, and the recode's overflow flag.  The scalars
+    are uploaded once as int64; the recode kernel runs on a card, its
+    plain version on the CPU."""
+    sc = _scalars_u64(scalars)
+    sc = torch.from_numpy(sc.view(np.int64)).to(device)
+    return signed_digits_cuda(sc, _points_inf(points, device), window, n_pad)
 
 
 def g1_msm_gpu(points, scalars, window: int | None = None, device="cuda",
@@ -540,37 +569,22 @@ def g1_msm_gpu(points, scalars, window: int | None = None, device="cuda",
     assert isinstance(points, G1Array)
     n = len(points)
     n_pad = max(8, 1 << (n - 1).bit_length())
-    digits = _point_digits(points, scalars, window, n_pad)
-    return g1_msm_blocks(points, digits, n_pad, window, device, group)
-
-
-def _point_digits(points, scalars, window: int, n_pad: int) -> np.ndarray:
-    """The signed window digits (nw, n_pad) of the scalars, zero on the
-    infinity points (a leaf is infinite iff its digit is 0) and on the
-    padding."""
-    sc = _scalars_u64(scalars)
-    if points.inf.any():
-        sc = sc.copy()
-        sc[points.inf.astype(bool)] = 0
-    return _pad_digits(_window_digits_signed(sc, window), n_pad)
+    digits, overflow = _point_digits(points, scalars, window, n_pad, device)
+    return g1_msm_blocks(points, digits, overflow, window, group)
 
 
 def g1_msm_gpu_multi(points, scalars_multi, window: int | None = None,
                      device="cuda", group: int | None = None):
-    """K MSMs over one G1Array, (K, n) scalars; returns a list of K affine
-    points / None."""
+    """K MSMs over one G1Array, (K, n) scalars, recoded in one launch;
+    returns a list of K affine points / None."""
     if window is None:
         window = WINDOW
     assert isinstance(points, G1Array)
     n = len(points)
     n_pad = max(8, 1 << (n - 1).bit_length())
-    rows = [_scalars_u64(sc) for sc in scalars_multi]
-    if points.inf.any():
-        mask = points.inf.astype(bool)
-        rows = [np.where(mask[:, None], np.uint64(0), r) for r in rows]
-    digits = np.stack([_window_digits_signed(r, window) for r in rows], axis=1)
-    return g1_msm_blocks_multi(points, _pad_digits(digits, n_pad), n_pad,
-                               len(rows), window, device, group)
+    sc = np.stack([_scalars_u64(s) for s in scalars_multi])
+    digits, overflow = _point_digits(points, sc, window, n_pad, device)
+    return g1_msm_blocks_multi(points, digits, overflow, len(sc), window, group)
 
 
 def _point_shard(points, d: int, per: int) -> G1Array:
@@ -588,10 +602,11 @@ def g1_msm_gpu_sharded(points, scalars, window: int | None, mesh):
     """The point-axis data-parallel MSM over every rank of `mesh` (a
     DeviceMesh spanning the world; every rank calls it with the same
     points and scalars).  The points pad to D shards of
-    per = max(8, next power of two >= ceil(n / D)); rank d runs
-    g1_msm_blocks on shard d on its device, with no exchange until the D
-    affine partial sums, which every rank gathers and folds on the host
-    with the group law.  Returns the affine point or None, on every rank."""
+    per = max(8, next power of two >= ceil(n / D)); rank d recodes its
+    shard's scalars and runs g1_msm_blocks on shard d on its device, with
+    no exchange until the D affine partial sums, which every rank gathers
+    and folds on the host with the group law.  Returns the affine point
+    or None, on every rank."""
     if window is None:
         window = WINDOW
     assert isinstance(points, G1Array)
@@ -601,10 +616,10 @@ def g1_msm_gpu_sharded(points, scalars, window: int | None, mesh):
     d = mesh.mesh.flatten().tolist().index(dist.get_rank())
     n = len(points)
     per = max(8, 1 << ((n + D - 1) // D - 1).bit_length())
-    digits = _point_digits(points, scalars, window, per * D)
-    part = g1_msm_blocks(_point_shard(points, d, per),
-                         np.ascontiguousarray(digits[:, d * per:(d + 1) * per]),
-                         per, window, rank_device(mesh.device_type))
+    shard = _point_shard(points, d, per)
+    sc = _scalars_u64(scalars)[d * per:(d + 1) * per]
+    part = g1_msm_blocks(shard, *_point_digits(shard, sc, window, per,
+                                               rank_device(mesh.device_type)), window)
     parts = [None] * D
     dist.all_gather_object(parts, part)
     acc = None

@@ -14,9 +14,9 @@ the G2 MSM of the b_g2 query (host C), and the whole `prove`.
 
 With `--g1-backend gpu` (the default) each G1 MSM runs through
 `snark.gpu_msm.g1_msm_gpu` on the device and must equal the native C's
-on the same inputs; `msm_split` gives its host recode, device window
-sums (CUDA events) and host fold, its K5 and K6 launches, and the native
-C's time beside it.  With `native` every G1 MSM is the host C's.
+on the same inputs; `msm_split` gives its device recode (the scalar
+upload included), device window sums (CUDA events) and host fold, its
+recode, K5 and K6 launches, and the native C's time beside it.  With `native` every G1 MSM is the host C's.
 
     python -m falcon_r1cs_tpu_torch.tools.profile_prove [iters]
         [--g1-backend gpu|native] [--device cuda] [--crs PATH] [--save-crs]
@@ -40,6 +40,7 @@ from ..circuits import FalconNTTVerificationCircuit
 from ..examples.pok_sig import synchronize
 from ..falcon import make_instance
 from ..ops.fq import mont_mul_cuda, point_add_aff_cuda, point_add_cuda
+from ..ops.msm_recode import signed_digits_cuda
 from ..params import get_params
 from ..r1cs import ConstraintSystem
 from ..r1cs.coo import compile_circuit
@@ -53,8 +54,8 @@ CIRCUIT = FalconNTTVerificationCircuit
 N = 512
 INSTANCE_SEED = 5
 # the kernels an MSM launches, by the names of their launch counts
-FQ_KERNELS = {"mont_mul_kernel": mont_mul_cuda, "point_add_kernel": point_add_cuda,
-              "point_add_aff_kernel": point_add_aff_cuda}
+MSM_KERNELS = {"signed_digits_kernel": signed_digits_cuda, "mont_mul_kernel": mont_mul_cuda,
+               "point_add_kernel": point_add_cuda, "point_add_aff_kernel": point_add_aff_cuda}
 
 
 def trace_assignment(inst):
@@ -88,8 +89,10 @@ def msm_split(points, scalars, device, iters: int = 1, groups=None, samples: int
     same inputs, which the whole MSM and the split's own fold must equal.
 
     Returns {"native_ms", "gpu_ms": the whole MSM by the host clock, mean
-    of `iters`; "launches": the Fq kernels' launches of one whole MSM;
-    "recode_ms": the host signed-digit recode; "group": groups[0];
+    of `iters`; "launches": the kernels' launches of one whole MSM;
+    "recode_ms": the signed-digit recode that `g1_msm_gpu` runs, on
+    `device`, by the host clock to a synchronise (the scalars' host
+    normalisation and upload included); "group": groups[0];
     "sums_ms": {G: `samples` device window sums at G windows a group,
     CUDA events (the host clock on the CPU), the groups in turns after one
     warm-up each}; "held_gib", "peak_gib": {G: the warm-up's peak device
@@ -103,23 +106,24 @@ def msm_split(points, scalars, device, iters: int = 1, groups=None, samples: int
     for _ in range(iters):
         want = native.g1_msm(points, scalars)
     native_ms = (time.perf_counter() - t0) / iters * 1e3
-    before = {k: w.launches for k, w in FQ_KERNELS.items()}
+    before = {k: w.launches for k, w in MSM_KERNELS.items()}
     t0 = time.perf_counter()
     for _ in range(iters):
         got = gpu_msm.g1_msm_gpu(points, scalars, device=dev)
     synchronize(dev)
     gpu_ms = (time.perf_counter() - t0) / iters * 1e3
-    launches = {k: (w.launches - before[k]) // iters for k, w in FQ_KERNELS.items()}
+    launches = {k: (w.launches - before[k]) // iters for k, w in MSM_KERNELS.items()}
     if got != want:
         raise RuntimeError(f"g1_msm_gpu over {len(points)} points != the native C")
 
     window = gpu_msm.WINDOW
     n_pad = max(8, 1 << (len(points) - 1).bit_length())
     nw = (255 + window - 1) // window
+    synchronize(dev)
     t0 = time.perf_counter()
-    digits = gpu_msm._point_digits(points, scalars, window, n_pad)
+    digits, overflow = gpu_msm._point_digits(points, scalars, window, n_pad, dev)
+    synchronize(dev)
     recode_ms = (time.perf_counter() - t0) * 1e3
-    digits = torch.from_numpy(digits).to(dev)
     xm, ym = gpu_msm._points_mont(points, n_pad, dev)
     groups = tuple(groups) if groups else (gpu_msm._group_windows(n_pad, nw, device=dev),)
 
@@ -138,7 +142,7 @@ def msm_split(points, scalars, device, iters: int = 1, groups=None, samples: int
         peak[G] = torch.cuda.max_memory_allocated(dev) / 2**30 - held if cuda else None
         if G == groups[0]:
             t0 = time.perf_counter()
-            folded = gpu_msm._fold_windows_host(ws, nw, 1, window)[0]
+            folded = gpu_msm._fold_windows_host(ws, nw, 1, window, overflow)[0]
             fold_ms = (time.perf_counter() - t0) * 1e3
             if folded != want:
                 raise RuntimeError(f"the split's window sums over {len(points)} points "
@@ -207,7 +211,7 @@ def run(iters: int = 3, g1_backend: str = "gpu", device="cuda", crs=None,
             sp = splits[name] = msm_split(pts, sc, dev, iters, samples=iters)
             ms[label] = sp["gpu_ms"]
             log(f"{label:26s} {sp['gpu_ms']:9.1f} ms  (device; native C "
-                f"{sp['native_ms']:.1f} ms, equal; host recode {sp['recode_ms']:.1f} ms, "
+                f"{sp['native_ms']:.1f} ms, equal; device recode {sp['recode_ms']:.1f} ms, "
                 f"device window sums {statistics.median(sp['sums_ms'][sp['group']]):.1f} ms "
                 f"({sp['group']} windows a group), host fold {sp['fold_ms']:.1f} ms; "
                 f"K5 {sp['launches']['point_add_kernel']}, "

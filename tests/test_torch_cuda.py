@@ -14,7 +14,16 @@ import torch
 
 from falcon_r1cs_tpu_torch import FALCON_512, FALCON_1024, Q, ProverInputPipeline, RuntimeConfig
 from falcon_r1cs_tpu_torch.falcon import compress_signature, encode_public_key, make_instance
-from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, fq_check, fq_mont, ntt_limb, ntt_v3
+from falcon_r1cs_tpu_torch.ops import (
+    _build,
+    cuda_ntt,
+    fq,
+    fq_check,
+    fq_mont,
+    msm_recode,
+    ntt_limb,
+    ntt_v3,
+)
 from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods_cuda
 from falcon_r1cs_tpu_torch.snark import gpu_msm, native_backend
 from falcon_r1cs_tpu_torch.witness import (
@@ -370,9 +379,81 @@ def test_fq_wrappers_reject_bad_inputs(cuda):
         fq.point_add_aff_cuda((X.t().contiguous().t(), Y, f), (X, Y, f))
 
 
+def _recode_scalars(K, n, seed):
+    """(K, n, 4) u64 scalars below 2^255, limbs 0-2 over the full range
+    (top bits set), with rows 0, r - 1 and all ones below 2^255."""
+    from falcon_r1cs_tpu_torch.snark.bls12_381 import R
+
+    rng = np.random.default_rng(seed)
+    sc = rng.integers(0, 2**64, size=(K, n, 4), dtype=np.uint64)
+    sc[..., 3] >>= np.uint64(1)
+    sc[:, 0] = 0
+    sc[:, 1] = [(R - 1) >> (64 * j) & (2**64 - 1) for j in range(4)]
+    sc[:, 2] = [2**64 - 1] * 3 + [2**63 - 1]
+    return sc
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("log_n", [17, 21])
+def test_recode_kernel_matches_plain(cuda, log_n, K):
+    """The recode kernel equals its plain version bit for bit, digits and
+    overflow flag, at n = 2^log_n - 3 points padded to 2^log_n, every 97th
+    point infinite, window 12, one MSM or four (the K-fold layout): one
+    launch a call."""
+    n_pad = 1 << log_n
+    n = n_pad - 3
+    sc = torch.from_numpy(_recode_scalars(K, n, 80 + log_n).view(np.int64)).to(cuda)
+    if K == 1:
+        sc = sc[0]
+    inf = torch.zeros(n, dtype=torch.bool, device=cuda)
+    inf[5::97] = True
+    before = msm_recode.signed_digits_cuda.launches
+    digits, overflow = msm_recode.signed_digits_cuda(sc, inf, 12, n_pad)
+    assert msm_recode.signed_digits_cuda.launches == before + 1
+    want, want_overflow = msm_recode.signed_digits(sc, inf, 12, n_pad)
+    assert digits.shape == (22 * K, n_pad) and digits.dtype == torch.int32
+    assert torch.equal(digits, want) and torch.equal(overflow, want_overflow)
+    assert overflow.item() == 0 and not digits[:, n:].any() and not digits[:, 5::97].any()
+
+
+def test_recode_kernel_overflow_flag(cuda):
+    """At window 5 (51 x 5 = 255 bits) r - 1 carries out of the top window:
+    the kernel sets its flag as the plain version does, at 12 it does not,
+    and g1_msm_gpu at window 5 raises the host recode's ValueError."""
+    n = 1000
+    sc = torch.from_numpy(_recode_scalars(1, n, 90)[0].view(np.int64)).to(cuda)
+    inf = torch.zeros(n, dtype=torch.bool, device=cuda)
+    for window, flagged in ((5, 1), (12, 0)):
+        got = msm_recode.signed_digits_cuda(sc, inf, window, 1024)
+        want = msm_recode.signed_digits(sc, inf, window, 1024)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert got[1].item() == flagged
+    rng = np.random.default_rng(91)
+    arr = native_backend.g1_fixed_base_batch([int(x) for x in rng.integers(1, 2**62, 16)])
+    from falcon_r1cs_tpu_torch.snark.bls12_381 import R
+
+    with pytest.raises(ValueError, match="top-window carry overflow"):
+        gpu_msm.g1_msm_gpu(arr, [R - 1] * 16, window=5, device=cuda)
+
+
+def test_recode_wrapper_refuses_bad_inputs(cuda):
+    """The wrapper raises on the CPU/card mix, dtypes, shapes and n_pad it
+    does not take, and launches nothing."""
+    sc = torch.zeros((64, 4), dtype=torch.int64, device=cuda)
+    inf = torch.zeros(64, dtype=torch.bool, device=cuda)
+    before = msm_recode.signed_digits_cuda.launches
+    for args in ((sc, inf.cpu(), 12, 64), (sc.int(), inf, 12, 64), (sc, inf.int(), 12, 64),
+                 (sc[:, :3], inf, 12, 64), (sc, inf[:32], 12, 64), (sc, inf, 12, 32),
+                 (sc, inf, 0, 64), (sc.t().contiguous().t(), inf, 12, 64)):
+        with pytest.raises(ValueError):
+            msm_recode.signed_digits_cuda(*args)
+    assert msm_recode.signed_digits_cuda.launches == before
+
+
 def test_msm_on_card_matches_native(cuda):
     """g1_msm_gpu at n = 2^12 (window 12) equals the native C MSM, and the
-    K-fold form too; the point set converts once (one K4 launch)."""
+    K-fold form too; the point set converts once (one K4 launch); each
+    MSM recodes in one launch, the K-fold one too."""
     n = 1 << 12
     rng = np.random.default_rng(64)
     arr = native_backend.g1_fixed_base_batch([int(x) for x in rng.integers(1, 2**62, n)])
@@ -380,13 +461,16 @@ def test_msm_on_card_matches_native(cuda):
     for sc in scalars:
         sc[:, 3] >>= np.uint64(2)
     k4, k6 = fq.mont_mul_cuda.launches, fq.point_add_aff_cuda.launches
+    recode = msm_recode.signed_digits_cuda.launches
     got = gpu_msm.g1_msm_gpu(arr, scalars[0], device=cuda)
     assert got == native_backend.g1_msm(arr, scalars[0])
     assert fq.mont_mul_cuda.launches == k4 + 1
     assert fq.point_add_aff_cuda.launches == k6 + 1
+    assert msm_recode.signed_digits_cuda.launches == recode + 1
     got = gpu_msm.g1_msm_gpu_multi(arr, scalars, device=cuda)
     assert got == native_backend.g1_msm_multi(arr, np.stack(scalars))
     assert fq.mont_mul_cuda.launches == k4 + 1
+    assert msm_recode.signed_digits_cuda.launches == recode + 2
 
 
 def test_msm_half_digits_2_20_on_card(cuda):

@@ -16,7 +16,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from falcon_r1cs_tpu_torch import FALCON_512
-from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, ntt_v3
+from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, msm_recode, ntt_v3
 from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods_cuda
 
 STREAM = 0x5EED
@@ -67,6 +67,7 @@ def _wrapper_calls(dev):
     flags = torch.zeros(m, dtype=torch.bool, device=dev)
     jac = (limbs, limbs, limbs, flags)
     aff = (limbs, limbs, flags)
+    scalars = torch.zeros((2, m, 4), dtype=torch.int64, device=dev)
     return [
         (_build.add_one, "add_one_launch", lambda: _build.add_one(x)),
         (cuda_ntt.ntt_with_hints_cuda, "ntt_hints_launch",
@@ -82,6 +83,8 @@ def _wrapper_calls(dev):
         (fq.point_add_cuda, "point_add_launch", lambda: fq.point_add_cuda(jac, jac)),
         (fq.point_add_aff_cuda, "point_add_aff_launch",
          lambda: fq.point_add_aff_cuda(aff, aff)),
+        (msm_recode.signed_digits_cuda, "signed_digits_launch",
+         lambda: msm_recode.signed_digits_cuda(scalars, flags, 12, 2 * m)),
     ]
 
 

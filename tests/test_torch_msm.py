@@ -113,8 +113,9 @@ def test_msm_multi_cpu_matches_native(msm_case):
     sc2 = [int(x) for x in rng.integers(0, 2**62, len(sc))]
     got = gpu_msm.g1_msm_gpu_multi(arr, [sc, sc2], window=4, device="cpu")
     assert got == [want, _host_sum(arr.to_affine_list(), sc2)]
-    # the Montgomery points were converted once and cached on the array
-    assert list(arr._gpu_mont_cache) == [(32, "cpu")]
+    # the Montgomery points were converted once and cached on the array,
+    # the infinity mask uploaded once beside them
+    assert list(arr._gpu_mont_cache) == [("inf", "cpu"), (32, "cpu")]
 
 
 def test_msm_all_zero_is_none(msm_case):

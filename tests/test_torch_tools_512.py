@@ -160,7 +160,7 @@ def test_profile_prove_native_stages(crs_512, port_cache):
 
 
 def test_msm_split_cpu_sums_to_native():
-    """msm_split on CPU tensors (the plain K4, K5, K6) over 2^10 points
+    """msm_split on CPU tensors (the plain recode, K4, K5, K6) over 2^10 points
     tiled from 8 base points, every 97th an infinity (its scalar must be
     masked, as in a CRS query): the whole MSM and the fold of the split's
     window sums equal the native C (checked inside) and the JAX package's
@@ -173,7 +173,7 @@ def test_msm_split_cpu_sums_to_native():
     assert sp["sum"] == jax_native.g1_msm(JaxG1Array(arr.xs, arr.ys, arr.inf), sc)
     assert sp["sum"] is not None
     assert sp["group"] == 22 and list(sp["sums_ms"]) == [22] and len(sp["sums_ms"][22]) == 1
-    assert sp["launches"] == dict.fromkeys(profile_prove.FQ_KERNELS, 0)
+    assert sp["launches"] == dict.fromkeys(profile_prove.MSM_KERNELS, 0)
     assert sp["held_gib"] is None and sp["peak_gib"] == {22: None}
 
 
