@@ -12,8 +12,9 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
   (1,150,004 witnesses of 8 limbs each) -> CRT verdict plus field rows;
 - the Groth16 path: one signature of the main path's batch -> its packed
   witness as prover scalars -> `prove(g1_backend="gpu")`, whose four G1
-  MSMs (n_pad = 2^18) run on the recode and Fq kernels, against the native C prover
-  with the same r and s; each MSM against the native C MSM;
+  MSMs (n_pad = 2^18) run on the recode, Fq and merge-level kernels,
+  against the native C prover with the same r and s; each MSM against
+  the native C MSM;
 - the semi-carry hint path: `ntt_with_hints_v3` on 1024 rows of
   Falcon-1024 coefficients, one launch of the semi-carry kernel (its
   hints epilogue, which normalises and divides by q in registers), its
@@ -60,7 +61,9 @@ It builds the kernels from csrc/, checks that each path launched its
 kernels (counts set to 0 just before the path, read just after), holds
 each kernel against its plain torch version on the card (all integer
 arithmetic: bit-exact, the MSM's recode kernel at 2^17 and 2^21 points
-(K = 1 and 4, infinity points, its overflow flag) included, except the
+(K = 1 and 4, infinity points, its overflow flag) and its merge-level
+kernel at the 2^17 and 2^18 window groups (levels 1, 2 and the root, the
+bucket planes included) included, except the
 Fq kernels K4, K5 and K6, whose
 coordinates must agree mod q, compared in canonical form, and whose flags
 must be equal; K5 and K6 also on rows far from canonical; K1 and K2 also
@@ -422,8 +425,9 @@ def k5_per_group(n_pad: int, window: int) -> int:
 def msm_launches(counted, n: int, K: int = 1) -> dict:
     """The launches of one MSM (K = 1, g1_msm_gpu) or one K-fold MSM
     (g1_msm_gpu_multi) over n cached points at the default window (+1 K4
-    when the point set is new): the recode once, K6 once and K5
-    k5_per_group times a window group, the K x 22 windows in groups of
+    when the point set is new): the recode once, K6 once, K5
+    k5_per_group times and the merge-level kernel once a level (log2
+    n_pad) a window group, the K x 22 windows in groups of
     _group_windows."""
     from falcon_r1cs_tpu_torch.snark import gpu_msm
 
@@ -432,7 +436,8 @@ def msm_launches(counted, n: int, K: int = 1) -> dict:
     groups = nw // gpu_msm._group_windows(n_pad, nw, device="cuda")
     return dict.fromkeys(counted, 0) | {
         "signed_digits_kernel": 1, "point_add_aff_kernel": groups,
-        "point_add_kernel": groups * k5_per_group(n_pad, gpu_msm.WINDOW)}
+        "point_add_kernel": groups * k5_per_group(n_pad, gpu_msm.WINDOW),
+        "bucket_level_kernel": groups * (n_pad.bit_length() - 1)}
 
 
 def device_kernel_ms(fn, keep=("point_add",)):
@@ -657,7 +662,7 @@ def cli_phase(dev, counted):
         if "gpu" in argv:
             assert all(runs[cmd][1].get(k, 0) > 0 for k in (
                 "signed_digits_kernel", "mont_mul_kernel", "point_add_kernel",
-                "point_add_aff_kernel")), (cmd, runs[cmd])
+                "point_add_aff_kernel", "bucket_level_kernel")), (cmd, runs[cmd])
     step, args = entry(dev)
     got, seconds, launches = counted_run(counted, lambda: step(*args))
     assert launches == dict.fromkeys(counted, 0) | {"ntt_hints_kernel": 2}, launches
@@ -880,7 +885,10 @@ def msm_stages(dev, counted, pts, sc, name):
             f"peak device memory {sp['peak_gib'][G]:.2f} GiB over the {sp['held_gib']:.2f} GiB "
             "held before")
     sums_ms = statistics.median(sp["sums_ms"][default])
-    wall, busy, top, _ = device_kernel_ms(lambda: sp["window_sums"](default))
+    wall, busy, top, _ = device_kernel_ms(lambda: sp["window_sums"](default),
+                                          keep=("point_add", "bucket_level", "index_put"))
+    # the bucket writes are the merge-level kernel's: no row scatter is left
+    assert not any("index_put" in key for key, _, _ in top), top
     log(f"MSM {name} n={len(pts)}: gpu warm {sp['gpu_ms'] / 1e3:.3f} s, native C "
         f"{sp['native_ms'] / 1e3:.3f} s, equal; device recode {sp['recode_ms']:.2f} ms "
         f"(the scalar upload included), device "
@@ -1083,13 +1091,15 @@ def bench_phase(counted):
     cell's end-to-end, set-up and per-layer metrics that BENCHMARK.json
     names printed on its last line, each with a positive value; the cell's
     kernels launched (the main path K1; the prove K1 for its assignment,
-    K4 for the CRS conversion, the recode, K5 and K6).  Returns {step: launches}."""
+    K4 for the CRS conversion, the recode, K5, K6 and the merge-level
+    kernel).  Returns {step: launches}."""
     import bench_torch
 
     spec = json.loads((Path(__file__).resolve().parent / "BENCHMARK.json").read_text())
     kernels = {bench_torch.WIRE: ("ntt_hints_kernel",),
                bench_torch.PROVE: ("ntt_hints_kernel", "signed_digits_kernel", "mont_mul_kernel",
-                                   "point_add_kernel", "point_add_aff_kernel")}
+                                   "point_add_kernel", "point_add_aff_kernel",
+                                   "bucket_level_kernel")}
     steps = {}
     for cell in spec["workloads"]:
         name = cell["name"]
@@ -1362,6 +1372,139 @@ def recode_kernel_vs_plain(dev, launches, build_log):
     )
 
 
+def bucket_level_bytes(kf, kl, affine):
+    """(bytes, buckets written) of one merge level for these keys (W, c),
+    its selects decided a lane as csrc/msm_bucket.cu decides them.  The
+    bytes it must move: its four keys a lane; a lane's sources read once
+    each (the bridge where a select or the closed lT takes it, lH and rT
+    where H' and T' keep them, lT and rH where their segments close; 3
+    coordinates of 35 int32 limbs and a flag byte, the affine leaves 2);
+    H', T', kf', kl' written; 105 words and a flag byte for each bucket
+    written."""
+    c2 = kf.shape[1] // 2
+    lkf, rkf, lkl, rkl = kf[:, :c2], kf[:, c2:], kl[:, :c2], kl[:, c2:]
+    same, ls, rs = lkl == rkf, lkf == lkl, rkf == rkl
+    h_br, t_br = same & ls, same & rs
+    emit_a, emit_b = ~ls & ~t_br, ~same & ~rs
+    lanes = same.numel()
+    src = 35 * 4 * (2 if affine else 3) + 1
+    need_b = h_br | t_br | (emit_a & same)
+    reads = (16 * lanes + (35 * 4 * 3 + 1) * int(need_b.sum())
+             + src * int((~h_br).sum() + (~t_br).sum() + (emit_a & ~same).sum() + emit_b.sum()))
+    emitted = int(emit_a.sum() + emit_b.sum())
+    if c2 == 1:  # the root's H' and, where it differs, its T'
+        emitted += lanes + int((rkl != lkf).sum())
+    return reads + lanes * 2 * (35 * 4 * 3 + 1 + 4) + emitted * (35 * 4 * 3 + 1), emitted
+
+
+def bucket_emissions(keys):
+    """The buckets each merge level of a group writes, level 1 first, from
+    its sorted bit-reversed keys (W, n) alone (a level of c lanes has
+    kf = keys[:, :c], kl = keys[:, n - c:])."""
+    n = keys.shape[1]
+    counts, c = [], n
+    while c > 1:
+        counts.append(bucket_level_bytes(keys[:, :c], keys[:, n - c:], c == n)[1])
+        c //= 2
+    return counts
+
+
+def bucket_kernel_vs_plain(dev, launches, build_log):
+    """The merge-level kernel against its plain version
+    (`ops.msm_bucket.bucket_level`, run on the same card tensors), bit for
+    bit: H', T', kf', kl' and the whole bank, which starts as random limbs
+    and flags, so a column the level must not write shows.  The keys are
+    the window-12 digits of random scalars below r, recoded, sorted and
+    placed bit-reversed as `gpu_msm._window_sums` does, one group of 22
+    windows at n_pad 2^17 (cell B's h query) and 2^18 (the Falcon-1024
+    prove); H, T and the bridge random limbs and flags (the level moves
+    them, whatever they hold).  Levels 1 (the affine leaves), 2 and the
+    root at both sizes.  Times of level 2 (the widest Jacobian level) and
+    level 1: CUDA events of the wrapper, the plain version, profiler
+    device ms; bound: the bytes that level's data needs
+    (`bucket_level_bytes`) over the card's rate; the buckets each level
+    of the 2^17 group writes, which sum to the group's distinct (window,
+    key) pairs; the ptxas lines of both instantiations (level 1's, affine,
+    under `affine_ptxas`)."""
+    from falcon_r1cs_tpu_torch.ops import msm_bucket, msm_recode
+    from falcon_r1cs_tpu_torch.snark import gpu_msm
+    from falcon_r1cs_tpu_torch.snark.bls12_381 import R
+    from falcon_r1cs_tpu_torch.snark.points import ints_to_limbs
+
+    wrapper = msm_bucket.bucket_level_cuda
+    W, window, nb = 22, 12, (1 << 11) + 1
+    rng = np.random.default_rng(20261027)
+    g = torch.Generator(device=dev).manual_seed(20261027)
+
+    def limbs(*shape):
+        return torch.randint(-2**12, 2**12, shape, generator=g, device=dev, dtype=torch.int32)
+
+    def flags(*shape):
+        return torch.randint(0, 2, shape, generator=g, device=dev).bool()
+
+    out = {}
+    for log_n in (17, 18):
+        n = 1 << log_n
+        sc = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+        sc = torch.from_numpy(ints_to_limbs(sc, 4).view(np.int64)).to(dev)
+        digits, _ = msm_recode.signed_digits_cuda(sc, torch.zeros(n, dtype=torch.bool,
+                                                                  device=dev), window, n)
+        _, keys, _ = gpu_msm._sorted_leaves(digits, window)
+        emissions = bucket_emissions(keys)
+        distinct = sum(int(keys[w].unique().numel()) for w in range(W))
+        assert sum(emissions) == distinct, (sum(emissions), distinct)
+        for c in (n, n // 2, 2):
+            if c == n:
+                H = T = (limbs(35, W, n), limbs(35, W, n), None, flags(W, n))
+                kf = kl = keys
+            else:
+                H, T = ((limbs(35, W, c), limbs(35, W, c), limbs(35, W, c), flags(W, c))
+                        for _ in range(2))
+                kf, kl = keys[:, :c].contiguous(), keys[:, n - c:].contiguous()
+            bridge = (limbs(35, W, c // 2), limbs(35, W, c // 2), limbs(35, W, c // 2),
+                      flags(W, c // 2))
+            bank = (*limbs(3, 35, W * nb).unbind(), flags(W * nb))
+            got_bank = tuple(a.clone() for a in bank)
+            args = (bridge, H, T, kf, kl, got_bank, nb)
+            got = wrapper(*args)
+            torch.cuda.synchronize()
+            want = msm_bucket.bucket_level(bridge, H, T, kf, kl, bank, nb)
+            for a, b in zip(got[0] + got[1] + got[2:] + got_bank,
+                            want[0] + want[1] + want[2:] + bank):
+                assert a.dtype == b.dtype and torch.equal(a, b), \
+                    f"bucket_level_kernel n_pad 2^{log_n} c={c} differs from its plain version"
+            if c == 2:
+                continue
+            del got, want
+            ms = cuda_ms(lambda: wrapper(*args))
+            plain_ms = cuda_ms(lambda: msm_bucket.bucket_level(*args), reps=5, inner=1)
+            dev_ms = kernel_device_ms(wrapper, args, "bucket_level_kernel", calls=4)
+            nbytes, emitted = bucket_level_bytes(kf, kl, c == n)
+            bound_ms, _ = bound(nbytes, 0)
+            level = 1 if c == n else 2
+            log(f"bucket_level_kernel n_pad 2^{log_n}, {W} windows, level {level} ({c} lanes in, "
+                f"{emitted} buckets written): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB); "
+                "bit-equal at levels 1, 2 and the root, the bank included")
+            out[(log_n, level)] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                                       bound_ms=bound_ms, nbytes=nbytes, buckets=emitted)
+            del args, H, T, bridge, bank, got_bank
+        out[(log_n, "emissions")] = emissions
+        log(f"bucket_level_kernel n_pad 2^{log_n}: buckets written a level, level 1 first: "
+            f"{emissions} ({distinct} in all, the group's distinct (window, key) pairs)")
+    main = out[(17, 2)]
+    return record(
+        "bucket_level_kernel", "falcon_r1cs_tpu_torch/csrc/msm_bucket.cu",
+        "none: the JAX package's bucket selects and scatters are XLA "
+        "(falcon_r1cs_tpu/snark/tpu_msm_blocks.py:216)",
+        launches, 0, main["ms"], main["plain_ms"], main["nbytes"], 0,
+        device_ms=main["device_ms"], **ptxas(build_log, "bucket_level_kernelILb0E", 256),
+        affine_ptxas=ptxas(build_log, "bucket_level_kernelILb1E", 256),
+        levels={f"n_pad 2^{k[0]} level {k[1]}": v for k, v in out.items() if k[1] != "emissions"},
+        buckets_a_level={f"n_pad 2^{k[0]}": v for k, v in out.items() if k[1] == "emissions"},
+    )
+
+
 def fq_kernels_vs_plain(dev, launches, build_log):
     """K4 (depth 1 and 4), K5 and K6 against their plain versions by value
     at m = M_FQ points with the doubling, P + (-P) and infinity rows of
@@ -1555,7 +1698,7 @@ def main():
         make_instance,
         ntt,
     )
-    from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, msm_recode, ntt_v3
+    from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, msm_bucket, msm_recode, ntt_v3
     from falcon_r1cs_tpu_torch.ops.ntt_limb import intt_then_hints
     from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods_cuda
     from falcon_r1cs_tpu_torch.witness import packer_ntt, witness_engine
@@ -1676,6 +1819,7 @@ def main():
         mont_mul_kernel=fq.mont_mul_cuda, point_add_kernel=fq.point_add_cuda,
         point_add_aff_kernel=fq.point_add_aff_cuda, ntt_semi_kernel=ntt_v3.ntt_semi_cuda,
         signed_digits_kernel=msm_recode.signed_digits_cuda,
+        bucket_level_kernel=msm_bucket.bucket_level_cuda,
     )
     log(f"phase main path: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1789,6 +1933,7 @@ def main():
         + "; ".join(f"{k} {v:.2f}" for k, v in costs.items()))
     records += fq_kernels_vs_plain(dev, g16_launches, build_log)
     records.append(recode_kernel_vs_plain(dev, g16_launches["signed_digits_kernel"], build_log))
+    records.append(bucket_kernel_vs_plain(dev, g16_launches["bucket_level_kernel"], build_log))
     records.append(semi_kernel_vs_plain(dev, semi_launches, build_log))
 
     # device part of the main path alone: engine + packer on uploaded inputs

@@ -18,9 +18,12 @@ The port of the JAX package's wide-tree Pallas engine
   bit-reversed leaf placement (position p holds sorted element brev(p),
   so every merge level pairs the two contiguous halves), the merge tree
   over the sorted run with one point add per merge -- K6 at level 1
-  (both leaves affine), K5 at every other level -- each bucket's total
-  scattered once into a row bank, then the weighted bucket sum
-  sum_d d B_d by two tree sums and two short suffix scans (K5);
+  (both leaves affine), K5 at every other level -- and one launch of the
+  merge-level kernel a level (`ops/msm_bucket.py`), which selects the
+  next level's nodes and writes each bucket's total, once over the tree,
+  into limb-major bucket planes (35, W nb); then the weighted bucket sum
+  sum_d d B_d by two tree sums and two short suffix scans (K5) over
+  those planes;
 - host: the Horner fold of the per-window sums in exact bigints.
 
 Differences from the JAX engine, with the same results: coordinates are
@@ -28,9 +31,11 @@ Differences from the JAX engine, with the same results: coordinates are
 kernel blocks; groups run in a Python loop (lax.map there), the group
 size is an argument (an environment variable there) and its memory
 budget on a card a quarter of the card (6 GB there); the digit sort is
-`torch.sort(stable=True)` plus a gather (a variadic sort there).  Left
-out: the XLA row-layout engine, the dispatch watchdog, and the bank and
-weighted-sum switches (the row bank and the automatic rule stay).
+`torch.sort(stable=True)` plus a gather (a variadic sort there); a merge
+level's selects and bucket writes are one kernel (XLA selects and
+scatters there).  Left out: the XLA row-layout engine, the dispatch
+watchdog, and the bank and weighted-sum switches (the JAX engine's
+"limb" bank layout and its automatic weighted-sum rule stay).
 
 `g1_msm_gpu_sharded` is the point-axis data-parallel MSM of
 `tpu_msm.g1_msm_tpu_sharded`: each rank of a device mesh runs the whole
@@ -48,6 +53,7 @@ import torch.distributed as dist
 
 from ..ops import fq_mont as fq
 from ..ops.fq import mont_mul_cuda, point_add_aff_cuda, point_add_cuda
+from ..ops.msm_bucket import bucket_bank, bucket_level_cuda
 from ..ops.msm_recode import signed_digits_cuda
 from ..utils.device import rank_device
 from .bls12_381 import P as Q381, R as FR_R
@@ -183,93 +189,33 @@ _add = _flat(point_add_cuda)          # K5
 _aff_add = _flat(point_add_aff_cuda)  # K6
 
 
-def _sel(cond, a, b):
-    """Select between two flat point tuples by a (..., m) bool."""
-    return (
-        torch.where(cond[None], a[0], b[0]),
-        torch.where(cond[None], a[1], b[1]),
-        torch.where(cond[None], a[2], b[2]),
-        torch.where(cond, a[3], b[3]),
-    )
-
-
-def _scatter(bank, key, val, valid, nb: int):
-    """Write flat point columns into the row bank (W*nb + 1, 3*35 + 1):
-    each valid lane's x|y|z limbs and flag as one contiguous row at key +
-    its window's offset; invalid lanes go to the spare row W*nb.  The
-    valid keys of one scatter are distinct, so only the spare row is
-    written twice."""
-    W, c = key.shape
-    off = (torch.arange(W, dtype=torch.int64, device=key.device) * nb)[:, None]
-    idx = torch.where(valid, key.long() + off, W * nb).reshape(-1)
-    m = idx.shape[0]
-    rows = torch.cat(
-        [
-            val[0].reshape(fq.NL, m).t(),
-            val[1].reshape(fq.NL, m).t(),
-            val[2].reshape(fq.NL, m).t(),
-            val[3].reshape(m, 1).to(torch.int32),
-        ],
-        dim=1,
-    )
-    bank[idx] = rows
-
-
 def _bucket_reduce_flat(pt_aff, keys, nb: int):
     """Bucket sums of a key-sorted, bit-reversed run of AFFINE leaves:
     X, Y (35, W, n), flags (W, n), keys (W, n).  Each merge tree node
     summarises its range by (H, T, kf, kl): the sums of its first and last
     segments and their keys; merging costs one point add (the bridge
-    T_left + H_right), and each segment's total is emitted at the unique
-    merge where both its ends become interior.  Level 1 adds two affine
-    leaves (K6) and emits nothing (a level-1 node is one segment).
-    Returns the limb-major bucket planes (35, W*nb) x3 + flags (W*nb,)."""
+    T_left + H_right), and each segment's total is written into the bucket
+    planes at the unique merge where both its ends become interior (the
+    root's two at the last level).  Level 1 adds two affine leaves (K6)
+    and writes nothing (a level-1 node is one segment); every level's
+    selects and writes are one launch of the merge-level kernel
+    (`ops.msm_bucket`), which writes only the buckets the level closes.
+    Returns the bucket planes X, Y, Z (35, W*nb) + flags (W*nb,); the
+    column of a bucket that no leaf reached stays infinity."""
     W, n = keys.shape
     assert n & (n - 1) == 0 and n >= 2
-    dev = keys.device
-    # unwritten rows read as infinity: inf column (3*35) = 1
-    bank = torch.zeros((W * nb + 1, 3 * fq.NL + 1), dtype=torch.int32, device=dev)
-    bank[:, 3 * fq.NL] = 1
-    # --- level 1: affine add, no emissions possible ---
+    bank = bucket_bank(W, nb, keys.device)
     c2 = n // 2
-    lk, rk = keys[..., :c2], keys[..., c2:]
-    l_aff = tuple(a[..., :c2] for a in pt_aff)
-    r_aff = tuple(a[..., c2:] for a in pt_aff)
-    bridge = _aff_add(l_aff, r_aff)
-    same = lk == rk
-    one = fq.consts(dev)["one"][:, None, None].expand(fq.NL, W, c2)
-    H = _sel(same, bridge, (l_aff[0], l_aff[1], one, l_aff[2]))
-    T = _sel(same, bridge, (r_aff[0], r_aff[1], one, r_aff[2]))
-    kf, kl = lk, rk
+    leaves = (pt_aff[0], pt_aff[1], None, pt_aff[2])
+    bridge = _aff_add(tuple(a[..., :c2] for a in pt_aff), tuple(a[..., c2:] for a in pt_aff))
+    H, T, kf, kl = bucket_level_cuda(bridge, leaves, leaves, keys, keys, bank, nb)
     c = c2
     while c > 1:
         c2 = c // 2
-        lH = tuple(a[..., :c2] for a in H)
-        rH = tuple(a[..., c2:c] for a in H)
-        lT = tuple(a[..., :c2] for a in T)
-        rT = tuple(a[..., c2:c] for a in T)
-        lkf, rkf = kf[..., :c2], kf[..., c2:c]
-        lkl, rkl = kl[..., :c2], kl[..., c2:c]
-        bridge = _add(lT, rH)
-        same = lkl == rkf
-        ls = lkf == lkl  # left node spans a single segment
-        rs = rkf == rkl
-        H = _sel(same & ls, bridge, lH)
-        T = _sel(same & rs, bridge, rT)
-        valA = _sel(same, bridge, lT)
-        _scatter(bank, lkl, valA, ~ls & ~(same & rs), nb)
-        _scatter(bank, rkf, rH, ~same & ~rs, nb)
-        kf, kl = lkf, rkl
+        bridge = _add(tuple(a[..., :c2] for a in T), tuple(a[..., c2:] for a in H))
+        H, T, kf, kl = bucket_level_cuda(bridge, H, T, kf, kl, bank, nb)
         c = c2
-    _scatter(bank, kf, H, torch.ones((W, 1), dtype=torch.bool, device=dev), nb)
-    _scatter(bank, kl, T, kl != kf, nb)
-    live = bank[: W * nb]
-    return (
-        live[:, : fq.NL].t(),
-        live[:, fq.NL : 2 * fq.NL].t(),
-        live[:, 2 * fq.NL : 3 * fq.NL].t(),
-        live[:, 3 * fq.NL] != 0,
-    )
+    return bank
 
 
 def _tree_sum_flat(pt):
@@ -329,12 +275,13 @@ def wsum_weights(nb: int) -> list:
 
 
 def _weighted_bucket_sum_flat(bufs, W: int, nb: int):
-    """Per-window weighted bucket sums over the (35, W*nb) bank.
+    """Per-window weighted bucket sums over the (35, W*nb) bucket planes.
 
     With d = CL*hi + lo (CL*CH = L = nb-1, the top bucket L its own part):
       sum_d d B_d = CL sum_hi hi C_hi + sum_lo lo D_lo + L B_L,
       C_hi = sum_lo B[hi, lo],  D_lo = sum_hi B[hi, lo]:
-    two tree sums over the reshaped bank and two short suffix scans.
+    two tree sums over the planes, reshaped (no copy), and two short
+    suffix scans.
     Returns part columns: coords (35, W, P) + inf (W, P) with the weights
     wsum_weights(nb)."""
     bx, by, bz, binf = bufs
@@ -404,6 +351,26 @@ def _group_windows(n: int, nw: int, cap: int | None = None, device="cpu") -> int
     return 1
 
 
+def _sorted_leaves(digits, window: int):
+    """(idx, d, s) (nW, n): each window's digit magnitudes sorted
+    (stable), their points' indices and signs, placed bit-reversed."""
+    mag = digits & ((1 << window) - 1)
+    sign = digits >> window
+    d_sorted, order = torch.sort(mag, dim=1, stable=True)
+    s_sorted = torch.gather(sign, 1, order)
+    brev = torch.from_numpy(_brev(digits.shape[1])).to(digits.device)
+    return order[:, brev], d_sorted[:, brev], s_sorted[:, brev]
+
+
+def _leaves(Xm, Ym, idx, d, s):
+    """The AFFINE leaves (implicit Z = one) of sorted windows: X, Y (35,
+    W, n) gathered, Y negated on negative digits, a zero digit an
+    infinity."""
+    Yg = Ym[:, idx]
+    Yg = torch.where(s[None] == 1, -Yg, Yg)
+    return (Xm[:, idx], Yg, d == 0)
+
+
 def _window_sums(digits, Xm, Ym, window: int, G: int):
     """Per-window bucket-weighted part sums of one point set.
 
@@ -411,27 +378,15 @@ def _window_sums(digits, Xm, Ym, window: int, G: int):
     over the points Xm, Ym (35, n) Montgomery limbs: one MSM's nw windows
     or K MSMs' nw*K); returns coords (35, nW, P) + inf (nW, P).  Windows
     run G at a time."""
-    n = digits.shape[1]
     nb = (1 << (window - 1)) + 1  # magnitudes 0..2^(w-1)
     nW = digits.shape[0]
     assert nW % G == 0, (nW, G)
-    mag = digits & ((1 << window) - 1)
-    sign = digits >> window
-    d_sorted, order = torch.sort(mag, dim=1, stable=True)
-    s_sorted = torch.gather(sign, 1, order)
-    brev = torch.from_numpy(_brev(n)).to(digits.device)
-    idx_all = order[:, brev]
-    d_all = d_sorted[:, brev]
-    s_all = s_sorted[:, brev]
+    idx_all, d_all, s_all = _sorted_leaves(digits, window)
     parts = []
     for g in range(nW // G):
         sl = slice(g * G, (g + 1) * G)
-        idx, d, s = idx_all[sl], d_all[sl], s_all[sl]
-        Yg = Ym[:, idx]
-        Yg = torch.where(s[None] == 1, -Yg, Yg)
-        # AFFINE leaves (implicit Z = one); a zero digit is an infinity
-        pt = (Xm[:, idx], Yg, d == 0)
-        bufs = _bucket_reduce_flat(pt, d, nb)
+        bufs = _bucket_reduce_flat(_leaves(Xm, Ym, idx_all[sl], d_all[sl], s_all[sl]),
+                                   d_all[sl], nb)
         parts.append(_weighted_bucket_sum_flat(bufs, G, nb))
     return (
         torch.cat([p[0] for p in parts], dim=1),

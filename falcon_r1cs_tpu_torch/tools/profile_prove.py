@@ -16,7 +16,8 @@ With `--g1-backend gpu` (the default) each G1 MSM runs through
 `snark.gpu_msm.g1_msm_gpu` on the device and must equal the native C's
 on the same inputs; `msm_split` gives its device recode (the scalar
 upload included), device window sums (CUDA events) and host fold, its
-recode, K5 and K6 launches, and the native C's time beside it.  With `native` every G1 MSM is the host C's.
+recode, K5, K6 and merge-level launches, and the native C's time beside
+it.  With `native` every G1 MSM is the host C's.
 
     python -m falcon_r1cs_tpu_torch.tools.profile_prove [iters]
         [--g1-backend gpu|native] [--device cuda] [--crs PATH] [--save-crs]
@@ -40,6 +41,7 @@ from ..circuits import FalconNTTVerificationCircuit
 from ..examples.pok_sig import synchronize
 from ..falcon import make_instance
 from ..ops.fq import mont_mul_cuda, point_add_aff_cuda, point_add_cuda
+from ..ops.msm_bucket import bucket_level_cuda
 from ..ops.msm_recode import signed_digits_cuda
 from ..params import get_params
 from ..r1cs import ConstraintSystem
@@ -55,7 +57,8 @@ N = 512
 INSTANCE_SEED = 5
 # the kernels an MSM launches, by the names of their launch counts
 MSM_KERNELS = {"signed_digits_kernel": signed_digits_cuda, "mont_mul_kernel": mont_mul_cuda,
-               "point_add_kernel": point_add_cuda, "point_add_aff_kernel": point_add_aff_cuda}
+               "point_add_kernel": point_add_cuda, "point_add_aff_kernel": point_add_aff_cuda,
+               "bucket_level_kernel": bucket_level_cuda}
 
 
 def trace_assignment(inst):

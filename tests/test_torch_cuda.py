@@ -20,6 +20,7 @@ from falcon_r1cs_tpu_torch.ops import (
     fq,
     fq_check,
     fq_mont,
+    msm_bucket,
     msm_recode,
     ntt_limb,
     ntt_v3,
@@ -450,10 +451,118 @@ def test_recode_wrapper_refuses_bad_inputs(cuda):
     assert msm_recode.signed_digits_cuda.launches == before
 
 
+def _level_inputs(W, n, c, seed, device):
+    """One merge level of c lanes of a W-window group over n leaves: the
+    keys of sorted random window-12 digits, placed bit-reversed (a level
+    of c lanes has kf = keys[:, :c], kl = keys[:, n - c:]); H, T (no Z at
+    c = n: the affine leaves, kf = kl = the keys), the bridge and a bank
+    of random limbs and flags (the level only moves them)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def limbs(*shape):
+        return torch.randint(-2**12, 2**12, shape, generator=g, device=device,
+                             dtype=torch.int32)
+
+    def flags(*shape):
+        return torch.randint(0, 2, shape, generator=g, device=device).bool()
+
+    mags = torch.randint(0, (1 << 11) + 1, (W, n), generator=g, device=device,
+                         dtype=torch.int32)
+    _, keys, _ = gpu_msm._sorted_leaves(mags, 12)
+    nb = (1 << 11) + 1
+    if c == n:
+        leaves = (limbs(35, W, n), limbs(35, W, n), None, flags(W, n))
+        H = T = leaves
+        kf = kl = keys
+    else:
+        H = (limbs(35, W, c), limbs(35, W, c), limbs(35, W, c), flags(W, c))
+        T = (limbs(35, W, c), limbs(35, W, c), limbs(35, W, c), flags(W, c))
+        kf, kl = keys[:, :c].contiguous(), keys[:, n - c:].contiguous()
+    bridge = (limbs(35, W, c // 2), limbs(35, W, c // 2), limbs(35, W, c // 2),
+              flags(W, c // 2))
+    bank = (*limbs(3, 35, W * nb).unbind(), flags(W * nb))
+    return bridge, H, T, kf, kl, bank, nb
+
+
+@pytest.mark.parametrize("W,n,c", [(22, 1 << 17, 1 << 17), (22, 1 << 17, 1 << 16),
+                                   (22, 1 << 17, 2), (3, 16, 4), (1, 8, 2)])
+def test_bucket_kernel_matches_plain(cuda, W, n, c):
+    """One merge level, the kernel against its plain version bit for bit
+    (H', T', kf', kl' and the whole bank, written only where the level
+    closes a segment): level 1 (affine leaves), level 2 and the root at
+    the 2^17-point group shape (22 windows), and small groups; one launch."""
+    bridge, H, T, kf, kl, bank, nb = _level_inputs(W, n, c, 40 + c, cuda)
+    got_bank = tuple(a.clone() for a in bank)
+    before = msm_bucket.bucket_level_cuda.launches
+    got = msm_bucket.bucket_level_cuda(bridge, H, T, kf, kl, got_bank, nb)
+    assert msm_bucket.bucket_level_cuda.launches == before + 1
+    want = msm_bucket.bucket_level(bridge, H, T, kf, kl, bank, nb)
+    for g, w in zip(got[0] + got[1] + got[2:], want[0] + want[1] + want[2:]):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+    for g, w in zip(got_bank, bank):
+        assert torch.equal(g, w)
+
+
+def test_bucket_reduction_2_18_matches_plain(cuda, monkeypatch):
+    """A whole bucket reduction of a 2^18-point group (22 windows, random
+    window-12 digits over tiled points: doublings and P + (-P) in the
+    tree), through the kernel (18 launches, one a level) and through its
+    plain version on the same card: equal bucket planes, bit for bit."""
+    from falcon_r1cs_tpu_torch.tools import msm_multi
+
+    n = 1 << 18
+    _, arr = msm_multi.tiled_points(n)
+    Xm, Ym = gpu_msm._points_mont(arr, n, cuda)
+    g = torch.Generator(device=cuda).manual_seed(18)
+    mag = torch.randint(0, (1 << 11) + 1, (22, n), generator=g, device=cuda, dtype=torch.int32)
+    neg = torch.randint(0, 2, (22, n), generator=g, device=cuda, dtype=torch.int32)
+    digits = mag | ((neg & (mag != 0)) << 12)
+    idx, d, s = gpu_msm._sorted_leaves(digits, 12)
+    pt = gpu_msm._leaves(Xm, Ym, idx, d, s)
+    nb = (1 << 11) + 1
+    before = msm_bucket.bucket_level_cuda.launches
+    got = gpu_msm._bucket_reduce_flat(pt, d, nb)
+    assert msm_bucket.bucket_level_cuda.launches == before + 18
+    monkeypatch.setattr(gpu_msm, "bucket_level_cuda", msm_bucket.bucket_level)
+    want = gpu_msm._bucket_reduce_flat(pt, d, nb)
+    assert msm_bucket.bucket_level_cuda.launches == before + 18
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not got[3].all()
+
+
+def test_bucket_wrapper_refuses_bad_inputs(cuda):
+    """The wrapper raises on the CPU/card mix, dtypes (the flags must be
+    torch.bool, read as bytes), shapes, strides and lane counts it does
+    not take, and launches nothing."""
+    bridge, H, T, kf, kl, bank, nb = _level_inputs(2, 16, 8, 7, cuda)
+    leaves = (H[0], H[1], None, H[3])
+    before = msm_bucket.bucket_level_cuda.launches
+    bad = [
+        (bridge, H, T, kf, kl.cpu(), bank, nb),                              # device
+        (bridge, H, T, kf, kl.long(), bank, nb),                             # key dtype
+        (bridge, H, (T[0], T[1], T[2], T[3].int()), kf, kl, bank, nb),       # flag dtype
+        (bridge[:3] + (bridge[3].to(torch.uint8),), H, T, kf, kl, bank, nb),
+        (bridge, H, T, kf, kl, bank[:3] + (bank[3][:-1],), nb),              # bank shape
+        (bridge, H, T, kf, kl, bank, nb + 1),
+        (tuple(a[..., :2] for a in bridge), H, T, kf, kl, bank, nb),         # bridge shape
+        (bridge, (H[0].transpose(1, 2).contiguous().transpose(1, 2),) + H[1:], T, kf, kl,
+         bank, nb),                                                          # strides
+        (bridge, leaves, T, kf, kl, bank, nb),                               # affine H only
+        (tuple(a[..., :3] for a in bridge), tuple(a[..., :6] for a in H),
+         tuple(a[..., :6] for a in T), kf[:, :6], kl[:, :6], bank, nb),      # c = 6
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            msm_bucket.bucket_level_cuda(*args)
+    assert msm_bucket.bucket_level_cuda.launches == before
+
+
 def test_msm_on_card_matches_native(cuda):
     """g1_msm_gpu at n = 2^12 (window 12) equals the native C MSM, and the
     K-fold form too; the point set converts once (one K4 launch); each
-    MSM recodes in one launch, the K-fold one too."""
+    MSM recodes in one launch, the K-fold one too; each runs the merge-level
+    kernel once a level of its one window group (12 at 2^12 points)."""
     n = 1 << 12
     rng = np.random.default_rng(64)
     arr = native_backend.g1_fixed_base_batch([int(x) for x in rng.integers(1, 2**62, n)])
@@ -462,8 +571,10 @@ def test_msm_on_card_matches_native(cuda):
         sc[:, 3] >>= np.uint64(2)
     k4, k6 = fq.mont_mul_cuda.launches, fq.point_add_aff_cuda.launches
     recode = msm_recode.signed_digits_cuda.launches
+    bucket = msm_bucket.bucket_level_cuda.launches
     got = gpu_msm.g1_msm_gpu(arr, scalars[0], device=cuda)
     assert got == native_backend.g1_msm(arr, scalars[0])
+    assert msm_bucket.bucket_level_cuda.launches == bucket + 12
     assert fq.mont_mul_cuda.launches == k4 + 1
     assert fq.point_add_aff_cuda.launches == k6 + 1
     assert msm_recode.signed_digits_cuda.launches == recode + 1
@@ -471,6 +582,7 @@ def test_msm_on_card_matches_native(cuda):
     assert got == native_backend.g1_msm_multi(arr, np.stack(scalars))
     assert fq.mont_mul_cuda.launches == k4 + 1
     assert msm_recode.signed_digits_cuda.launches == recode + 2
+    assert msm_bucket.bucket_level_cuda.launches == bucket + 24
 
 
 def test_msm_half_digits_2_20_on_card(cuda):

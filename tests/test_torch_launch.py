@@ -16,7 +16,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from falcon_r1cs_tpu_torch import FALCON_512
-from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, msm_recode, ntt_v3
+from falcon_r1cs_tpu_torch.ops import _build, cuda_ntt, fq, msm_bucket, msm_recode, ntt_v3
 from falcon_r1cs_tpu_torch.ops.schoolbook import schoolbook_prods_cuda
 
 STREAM = 0x5EED
@@ -68,6 +68,14 @@ def _wrapper_calls(dev):
     jac = (limbs, limbs, limbs, flags)
     aff = (limbs, limbs, flags)
     scalars = torch.zeros((2, m, 4), dtype=torch.int64, device=dev)
+    nodes = torch.zeros((35, 2, m), dtype=torch.int32, device=dev)
+    node_flags = torch.zeros((2, m), dtype=torch.bool, device=dev)
+    keys = torch.zeros((2, m), dtype=torch.int32, device=dev)
+    level = (nodes, nodes, nodes, node_flags)
+    leaves = (nodes, nodes, None, node_flags)
+    half = torch.zeros((35, 2, m // 2), dtype=torch.int32, device=dev)
+    bridge = (half, half, half, torch.zeros((2, m // 2), dtype=torch.bool, device=dev))
+    bank = msm_bucket.bucket_bank(2, 3, dev)
     return [
         (_build.add_one, "add_one_launch", lambda: _build.add_one(x)),
         (cuda_ntt.ntt_with_hints_cuda, "ntt_hints_launch",
@@ -85,6 +93,10 @@ def _wrapper_calls(dev):
          lambda: fq.point_add_aff_cuda(aff, aff)),
         (msm_recode.signed_digits_cuda, "signed_digits_launch",
          lambda: msm_recode.signed_digits_cuda(scalars, flags, 12, 2 * m)),
+        (msm_bucket.bucket_level_cuda, "bucket_level_launch",
+         lambda: msm_bucket.bucket_level_cuda(bridge, level, level, keys, keys, bank, 3)),
+        (msm_bucket.bucket_level_cuda, "bucket_level_launch",
+         lambda: msm_bucket.bucket_level_cuda(bridge, leaves, leaves, keys, keys, bank, 3)),
     ]
 
 

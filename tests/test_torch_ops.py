@@ -211,10 +211,11 @@ def test_kernel_library_key_follows_sources():
     assert path.parent == REPO / "build" / "kernels"
     assert path == _build.library_path()
     assert sorted(p.name for p in _build._CSRC.glob("*.cu")) == [
-        "fq_mont.cu", "msm_recode.cu", "ntt_hints.cu", "ntt_v3.cu", "schoolbook.cu",
+        "fq_mont.cu", "msm_bucket.cu", "msm_recode.cu", "ntt_hints.cu", "ntt_v3.cu",
+        "schoolbook.cu",
     ]
-    for name in ("schoolbook_prods_launch", "mont_mul_launch",
-                 "point_add_launch", "point_add_aff_launch", "ntt_semi_launch"):
+    for name in ("schoolbook_prods_launch", "mont_mul_launch", "point_add_launch",
+                 "point_add_aff_launch", "ntt_semi_launch", "bucket_level_launch"):
         assert name in _build._ARGTYPES
 
 
