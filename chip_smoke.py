@@ -30,7 +30,9 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
   dual and schoolbook sharded engines on the main, dual and schoolbook
   batches, gathered equal to the single-device engines (K1 2 and 4, K3
   1); the sharded CRT check; the sharded MSM over the h query (K4, K5,
-  K6); ntt_sharded at D = 1; `dryrun_multichip(1)` in a spawned rank;
+  K6), and at windows 5 and 17, which divide 255, over 2^16 tiled points
+  on r - 1, all-ones and random full-width scalars, each equal to the
+  native C; ntt_sharded at D = 1; `dryrun_multichip(1)` in a spawned rank;
   `scaling_sweep`'s one point;
 - the large prover and K-fold MSM tools (`falcon_r1cs_tpu_torch.tools`):
   schoolbook-1024 (K3 once, four G1 MSMs of n_pad 2^21) and dual-1024 (K1
@@ -422,22 +424,82 @@ def k5_per_group(n_pad: int, window: int) -> int:
     return levels + (cl.bit_length() - 1) + (ch.bit_length() - 1) + scan(ch) + scan(cl)
 
 
-def msm_launches(counted, n: int, K: int = 1) -> dict:
-    """The launches of one MSM (K = 1, g1_msm_gpu) or one K-fold MSM
-    (g1_msm_gpu_multi) over n cached points at the default window (+1 K4
-    when the point set is new): the recode once, K6 once, K5
-    k5_per_group times and the merge-level kernel once a level (log2
-    n_pad) a window group, the K x 22 windows in groups of
-    _group_windows."""
+def msm_launches(counted, n: int, K: int = 1, window: int | None = None,
+                 nw: int | None = None) -> dict:
+    """The launches of one MSM (K = 1, g1_msm_gpu, or the sharded MSM at
+    one rank) or one K-fold MSM (g1_msm_gpu_multi) over n cached points
+    at `window` (default 12) with nw windows an MSM (default ceil(255 /
+    w); the sharded MSM's is n_windows_carry(w)) (+1 K4 when the point
+    set is new): the recode once, K6 once, K5 k5_per_group times and the
+    merge-level kernel once a level (log2 n_pad) a window group, the
+    K x nw windows in groups of _group_windows."""
+    from falcon_r1cs_tpu_torch.ops.msm_recode import n_windows
     from falcon_r1cs_tpu_torch.snark import gpu_msm
 
-    nw = K * ((255 + gpu_msm.WINDOW - 1) // gpu_msm.WINDOW)
+    window = gpu_msm.WINDOW if window is None else window
+    nw = K * (n_windows(window) if nw is None else nw)
     n_pad = max(8, 1 << (n - 1).bit_length())  # 2^18 at Falcon-1024
     groups = nw // gpu_msm._group_windows(n_pad, nw, device="cuda")
     return dict.fromkeys(counted, 0) | {
         "signed_digits_kernel": 1, "point_add_aff_kernel": groups,
-        "point_add_kernel": groups * k5_per_group(n_pad, gpu_msm.WINDOW),
+        "point_add_kernel": groups * k5_per_group(n_pad, window),
         "bucket_level_kernel": groups * (n_pad.bit_length() - 1)}
+
+
+# the sharded MSM at the windows that divide 255: points tiled from 8 base
+# points (tools.msm_multi.tiled_points), padded to 2^16
+CARRY_MSM_N = (1 << 16) - 3
+CARRY_MSM_WINDOWS = (5, 17)
+
+
+def carry_msm_scalars(n: int) -> dict:
+    """{name: (n, 4) u64}: r - 1, all ones below 2^255 and random scalars
+    below 2^255 on every point (at ceil(255 / w) windows the top window
+    carries out of the first two at w = 5 and 17, and of ~45 % of the
+    third)."""
+    from falcon_r1cs_tpu_torch.snark.bls12_381 import R
+
+    def rows(value):
+        return np.tile(np.array([value >> (64 * j) & (2**64 - 1) for j in range(4)],
+                                dtype=np.uint64), (n, 1))
+
+    rand = np.random.default_rng(20261030).integers(0, 2**64, size=(n, 4), dtype=np.uint64)
+    rand[:, 3] >>= np.uint64(1)
+    return {"r-1": rows(R - 1), "ones": rows((1 << 255) - 1), "random": rand}
+
+
+def carry_msm_cases(counted, mesh) -> dict:
+    """g1_msm_gpu_sharded on the world-1 mesh at windows 5 and 17 over
+    CARRY_MSM_N tiled points, on each of carry_msm_scalars: each equal to
+    the native C MSM, with the launches of one MSM of n_windows_carry(w)
+    windows (52 and 16), K4 once on the new point set.  Returns
+    {f"msm w={w}": the first run's launches}."""
+    from falcon_r1cs_tpu_torch.ops.msm_recode import n_windows, n_windows_carry
+    from falcon_r1cs_tpu_torch.snark import gpu_msm, native_backend
+    from falcon_r1cs_tpu_torch.tools.msm_multi import tiled_points
+
+    _, pts = tiled_points(CARRY_MSM_N)
+    out, cold = {}, 1
+    for window in CARRY_MSM_WINDOWS:
+        nw = n_windows_carry(window)
+        assert nw == n_windows(window) + 1, (window, nw)
+        for name, sc in carry_msm_scalars(CARRY_MSM_N).items():
+            want_counts = msm_launches(counted, CARRY_MSM_N, window=window, nw=nw)
+            want_counts["mont_mul_kernel"] = cold
+            got, seconds, counts = counted_run(
+                counted, lambda: gpu_msm.g1_msm_gpu_sharded(pts, sc, window, mesh))
+            assert counts == want_counts, (window, name, counts, want_counts)
+            t0 = time.perf_counter()
+            want = native_backend.g1_msm(pts, sc)
+            native_s = time.perf_counter() - t0
+            assert got == want and want is not None, f"sharded MSM w={window} {name} != native C"
+            out.setdefault(f"msm w={window}", {k: v for k, v in counts.items() if v})
+            log(f"parallel MSM w={window} ({nw} windows) n={CARRY_MSM_N} tiled, {name} "
+                f"scalars: sharded {seconds:.3f} s{' cold' if cold else ''} against the "
+                f"native C {native_s:.3f} s (host clock, one sample each); == native C; "
+                f"launches {out[f'msm w={window}'] if cold else 'as msm_launches'}")
+            cold = 0
+    return out
 
 
 def device_kernel_ms(fn, keep=("point_add",)):
@@ -683,9 +745,10 @@ def parallel_phase(port, dev, insts, out, rs, instance, packed, h_msm, counted):
     single-device engine on every key; the sharded CRT check on N_SAT
     signatures, all True and False exactly where bumped; the sharded MSM
     over the h query (2^18 points, window 12) equal to g1_msm_gpu and the
-    native C (K4 1 cold, K5 and K6 as msm_launches); ntt_sharded at D = 1
-    equal to the clear NTT; dryrun_multichip(1), a spawned rank over NCCL; and
-    scaling_sweep's one point.  Returns {path: launches} of the sharded
+    native C (K4 1 cold, K5 and K6 as msm_launches), and at windows 5 and
+    17 over 2^16 tiled points on full-width scalars (carry_msm_cases);
+    ntt_sharded at D = 1 equal to the clear NTT; dryrun_multichip(1), a
+    spawned rank over NCCL; and scaling_sweep's one point.  Returns {path: launches} of the sharded
     calls."""
     import torch.distributed as dist
 
@@ -781,6 +844,7 @@ def parallel_phase(port, dev, insts, out, rs, instance, packed, h_msm, counted):
     log(f"parallel MSM h n={len(pts)} (1 shard): sharded cold {cold_s:.3f} s, "
         f"warm {warm_s:.3f} s against g1_msm_gpu warm {one_s:.3f} s (host clock, one "
         f"sample each); == g1_msm_gpu == native C; launches cold {sharded['msm']}")
+    sharded.update(carry_msm_cases(counted, mesh))
 
     x = np.random.default_rng(20261021).integers(0, port.Q, size=(N_SIGS, n)).astype(np.int32)
     got = ntt_sharded(mesh, port.FALCON_1024)(torch.from_numpy(x).to(dev))
@@ -1313,11 +1377,13 @@ def recode_kernel_vs_plain(dev, launches, build_log):
     n_pad 2^17 and 2^21), K = 1 and 4, random scalars below 2^255 whose
     limbs 0-2 span the full u64 range (top bits set), rows 0, r - 1 and
     all ones below 2^255, every 97th point infinite; window 5 over the
-    2^17 rows (51 x 5 = 255 bits: r - 1 and the all-ones rows carry out of
-    the top window, so the flag is set, as in its plain version).  Times
-    at K = 1: CUDA events of the wrapper, the plain version, profiler
-    device ms; bound: the bytes (scalars, mask read, digits written) over
-    the card's rate; its ptxas line."""
+    2^17 rows at its default 51 windows (51 x 5 = 255 bits: r - 1 and the
+    all-ones rows carry out of the top window, so the flag is set, as in
+    its plain version) and at the sharded MSM's n_windows_carry(5) = 52
+    (flag 0).  Times at K = 1: CUDA events of the wrapper, the plain
+    version, profiler device ms; bound: the bytes (scalars, mask read,
+    digits written) over the card's rate; its ptxas line.  The 52-window
+    recode's numbers go under the key "carry_w5"."""
     from falcon_r1cs_tpu_torch.ops import msm_recode
     from falcon_r1cs_tpu_torch.snark.bls12_381 import R
 
@@ -1338,14 +1404,17 @@ def recode_kernel_vs_plain(dev, launches, build_log):
             inf = torch.zeros(n, dtype=torch.bool, device=dev)
             inf[5::97] = True
             args = (sc if K > 1 else sc[0], inf)
-            windows = (window, 5) if (log_n, K) == (17, 1) else (window,)
-            for w in windows:
-                got = wrapper(*args, w, n_pad)
+            counts = [(window, None)]
+            if (log_n, K) == (17, 1):
+                counts += [(5, None), (5, msm_recode.n_windows_carry(5))]
+            for w, nw in counts:
+                got = wrapper(*args, w, n_pad, nw)
                 torch.cuda.synchronize()
-                want = wrapper.plain(*args, w, n_pad)
+                want = wrapper.plain(*args, w, n_pad, nw)
                 assert all(g.dtype == h.dtype and torch.equal(g, h) for g, h in zip(got, want)), \
-                    f"recode kernel n={n} K={K} w={w} differs from its plain version"
-                assert got[1].item() == (w == 5), f"overflow flag {got[1].item()} at w={w}"
+                    f"recode kernel n={n} K={K} w={w} nw={nw} differs from its plain version"
+                flagged = w == 5 and nw is None
+                assert got[1].item() == flagged, f"overflow flag {got[1].item()} at w={w}, nw={nw}"
             if K > 1:
                 continue
             ms = cuda_ms(lambda: wrapper(*args, window, n_pad))
@@ -1360,6 +1429,20 @@ def recode_kernel_vs_plain(dev, launches, build_log):
                 f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}); bit-equal with the flag, K = 1 and 4, w = 5 overflow flagged")
             out[log_n] = (ms, plain_ms, dev_ms, nbytes, ops)
+            if log_n == 17:
+                nw = msm_recode.n_windows_carry(5)
+                carry_args = (*args, 5, n_pad, nw)
+                c_ms = cuda_ms(lambda: wrapper(*carry_args))
+                c_plain = cuda_ms(lambda: wrapper.plain(*carry_args), reps=5, inner=1)
+                c_dev = kernel_device_ms(wrapper, carry_args, "signed_digits_kernel", alone=True)
+                c_bytes = 32 * n + n + 4 * nw * n_pad + 4
+                c_bound = bound(c_bytes, RECODE_OPS_A_DIGIT * nw * n_pad)
+                log(f"signed_digits_kernel n={n} w=5 at {nw} windows (the sharded MSM's): "
+                    f"kernel {c_ms:.4f} ms (device {c_dev:.4f} ms), plain {c_plain:.4f} ms, "
+                    f"bound {c_bound[0]:.4f} ms ({c_bound[1]}); bit-equal, flag 0 (r - 1 and "
+                    "the all-ones rows included)")
+                carry = {"window": 5, "nw": nw, "ms": c_ms, "plain_ms": c_plain,
+                         "device_ms": c_dev, "bound_ms": c_bound[0], "bound_by": c_bound[1]}
     ms, plain_ms, dev_ms, nbytes, ops = out[17]
     big = out[21]
     return record(
@@ -1369,6 +1452,7 @@ def recode_kernel_vs_plain(dev, launches, build_log):
         **ptxas(build_log, "signed_digits_kernel", 256),
         n_pad_2e21={"ms": big[0], "plain_ms": big[1], "device_ms": big[2],
                     "bound_ms": bound(big[3], big[4])[0]},
+        carry_w5=carry,
     )
 
 

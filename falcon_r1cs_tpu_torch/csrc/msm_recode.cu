@@ -9,13 +9,16 @@
 //
 // What it computes, for MSM k < K and point i < n_pad, from the scalar s
 // (4 little-endian u64 limbs, zeroed where point i is infinite or i >= n):
-// the nw = ceil(255 / w) signed window digits of the standard carry
-// recode, v = ((s >> (j w)) & (2^w - 1)) + carry, and v > 2^(w-1) emits
-// v - 2^w and carries 1; each digit is written packed as
-// |digit| | (digit < 0) << w at digits[(j K + k) n_pad + i] (window-major,
-// the layout gpu_msm._window_sums takes).  A scalar whose final carry is
-// 1 does not fit the windows; the kernel sets *overflow to 1, and the
-// host reads it where the MSM synchronises anyway.
+// the nw signed window digits of the standard carry recode,
+// v = ((s >> (j w)) & (2^w - 1)) + carry, and v > 2^(w-1) emits v - 2^w
+// and carries 1; each digit is written packed as |digit| | (digit < 0) << w
+// at digits[(j K + k) n_pad + i] (window-major, the layout
+// gpu_msm._window_sums takes).  The caller picks nw: ceil(255 / w), the
+// windows of the JAX package's recode, or 255 / w + 1 (one more where w
+// divides 255), whose top window covers bits 255 and up, zero below 2^255,
+// so its digit is the carry in and no scalar below 2^255 carries out.  A
+// scalar whose final carry is 1 does not fit the windows; the kernel sets
+// *overflow to 1, and the host reads it where the MSM synchronises anyway.
 //
 // What bounds it on an H100: bytes.  It reads 32 B of scalar and 1 B of
 // the infinity flag a point and writes 4 nw B of digits (88 B at w = 12);
@@ -90,12 +93,13 @@ extern "C" {
 
 // Runs on the given stream and returns cudaGetLastError().  scalars:
 // (K, n, 4) u64, 16-byte aligned; inf: (n,) bool; digits: (nw K, n_pad)
-// int32, every word written; overflow: one int32, zeroed by the caller.
+// int32, every word written; overflow: one int32, zeroed by the caller;
+// nw: ceil(255 / w) or 255 / w + 1.
 int signed_digits_launch(const void* scalars, const bool* inf, int* digits, int* overflow,
-                         int n, int n_pad, int k, int window, void* stream) {
-  if (n < 0 || n_pad < 1 || n > n_pad || k < 1 || k > 65535 || window < 1 || window > 30)
+                         int n, int n_pad, int k, int window, int nw, void* stream) {
+  if (n < 0 || n_pad < 1 || n > n_pad || k < 1 || k > 65535 || window < 1 || window > 30 ||
+      (nw != (255 + window - 1) / window && nw != 255 / window + 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nw = (255 + window - 1) / window;
   const dim3 grid((n_pad + kThreads - 1) / kThreads, k);
   signed_digits_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const ulonglong2*>(scalars), inf, digits, overflow, n, n_pad, window, nw);

@@ -54,7 +54,7 @@ import torch.distributed as dist
 from ..ops import fq_mont as fq
 from ..ops.fq import mont_mul_cuda, point_add_aff_cuda, point_add_cuda
 from ..ops.msm_bucket import bucket_bank, bucket_level_cuda
-from ..ops.msm_recode import signed_digits_cuda
+from ..ops.msm_recode import n_windows_carry, signed_digits_cuda
 from ..utils.device import rank_device
 from .bls12_381 import P as Q381, R as FR_R
 from .bls12_381 import g1_add, g1_double, g1_from_affine, g1_to_affine
@@ -500,16 +500,17 @@ def _points_inf(points, device):
     return cache[key]
 
 
-def _point_digits(points, scalars, window: int, n_pad: int, device):
+def _point_digits(points, scalars, window: int, n_pad: int, device, nw: int | None = None):
     """(digits, overflow) on `device`: the signed window digits (nw K,
     n_pad) int32 of the scalars ((n,) or (n, 4) u64, or (K, n, 4) u64 for
     K MSMs), zero on the infinity points (a leaf is infinite iff its digit
-    is 0) and on the padding, and the recode's overflow flag.  The scalars
-    are uploaded once as int64; the recode kernel runs on a card, its
-    plain version on the CPU."""
+    is 0) and on the padding, and the recode's overflow flag.  nw is the
+    recode's window count (`ops.msm_recode`: ceil(255 / w) by default).
+    The scalars are uploaded once as int64; the recode kernel runs on a
+    card, its plain version on the CPU."""
     sc = _scalars_u64(scalars)
     sc = torch.from_numpy(sc.view(np.int64)).to(device)
-    return signed_digits_cuda(sc, _points_inf(points, device), window, n_pad)
+    return signed_digits_cuda(sc, _points_inf(points, device), window, n_pad, nw)
 
 
 def g1_msm_gpu(points, scalars, window: int | None = None, device="cuda",
@@ -561,7 +562,14 @@ def g1_msm_gpu_sharded(points, scalars, window: int | None, mesh):
     shard's scalars and runs g1_msm_blocks on shard d on its device, with
     no exchange until the D affine partial sums, which every rank gathers
     and folds on the host with the group law.  Returns the affine point
-    or None, on every rank."""
+    or None, on every rank.
+
+    The recode takes n_windows_carry(w) windows, one more than ceil(255 /
+    w) where w divides 255 (w = 3, 5, 15, 17): so every scalar below r
+    fits at every window, as in the JAX package's sharded MSM, whose
+    unsigned digits always fit.  g1_msm_gpu and g1_msm_gpu_multi keep
+    ceil(255 / w) windows, and raise where the top window carries out, as
+    the JAX package's Pallas engine does."""
     if window is None:
         window = WINDOW
     assert isinstance(points, G1Array)
@@ -573,8 +581,9 @@ def g1_msm_gpu_sharded(points, scalars, window: int | None, mesh):
     per = max(8, 1 << ((n + D - 1) // D - 1).bit_length())
     shard = _point_shard(points, d, per)
     sc = _scalars_u64(scalars)[d * per:(d + 1) * per]
-    part = g1_msm_blocks(shard, *_point_digits(shard, sc, window, per,
-                                               rank_device(mesh.device_type)), window)
+    digits = _point_digits(shard, sc, window, per, rank_device(mesh.device_type),
+                           n_windows_carry(window))
+    part = g1_msm_blocks(shard, *digits, window)
     parts = [None] * D
     dist.all_gather_object(parts, part)
     acc = None

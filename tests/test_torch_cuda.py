@@ -417,6 +417,40 @@ def test_recode_kernel_matches_plain(cuda, log_n, K):
     assert overflow.item() == 0 and not digits[:, n:].any() and not digits[:, 5::97].any()
 
 
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("window", [3, 5, 15, 17])
+def test_recode_kernel_carry_count_matches_plain(cuda, window, K):
+    """At the windows that divide 255, the kernel at n_windows_carry(w)
+    windows (255 / w + 1) equals its plain version bit for bit over
+    n = 2^16 - 3 points padded to 2^16, r - 1 and all ones below 2^255
+    among them: every word written (the digits land on a block poisoned
+    with -1 and freed just before) and the flag 0."""
+    n_pad = 1 << 16
+    n = n_pad - 3
+    nw = msm_recode.n_windows_carry(window)
+    assert nw == 255 // window + 1 == msm_recode.n_windows(window) + 1
+    sc = torch.from_numpy(_recode_scalars(K, n, 100 + window).view(np.int64)).to(cuda)
+    if K == 1:
+        sc = sc[0]
+    inf = torch.zeros(n, dtype=torch.bool, device=cuda)
+    inf[5::97] = True
+    poison = torch.full((nw * K, n_pad), -1, dtype=torch.int32, device=cuda)
+    ptr = poison.data_ptr()
+    del poison
+    before = msm_recode.signed_digits_cuda.launches
+    digits, overflow = msm_recode.signed_digits_cuda(sc, inf, window, n_pad, nw)
+    torch.cuda.synchronize()
+    assert msm_recode.signed_digits_cuda.launches == before + 1
+    assert digits.data_ptr() == ptr, "the digits did not reuse the poisoned block"
+    want, want_overflow = msm_recode.signed_digits(sc, inf, window, n_pad, nw)
+    assert digits.shape == (nw * K, n_pad) and digits.dtype == torch.int32
+    assert torch.equal(digits, want) and torch.equal(overflow, want_overflow)
+    assert overflow.item() == 0 and not (digits == -1).any()
+    # the default count flags r - 1, and its digits are the first windows
+    short, flag = msm_recode.signed_digits_cuda(sc, inf, window, n_pad)
+    assert torch.equal(short, digits[:(nw - 1) * K]) and flag.item() == 1
+
+
 def test_recode_kernel_overflow_flag(cuda):
     """At window 5 (51 x 5 = 255 bits) r - 1 carries out of the top window:
     the kernel sets its flag as the plain version does, at 12 it does not,
@@ -438,14 +472,17 @@ def test_recode_kernel_overflow_flag(cuda):
 
 
 def test_recode_wrapper_refuses_bad_inputs(cuda):
-    """The wrapper raises on the CPU/card mix, dtypes, shapes and n_pad it
-    does not take, and launches nothing."""
+    """The wrapper raises on the CPU/card mix, dtypes, shapes, n_pad and
+    window counts it does not take (a count but ceil(255 / w) and
+    255 // w + 1), and launches nothing."""
     sc = torch.zeros((64, 4), dtype=torch.int64, device=cuda)
     inf = torch.zeros(64, dtype=torch.bool, device=cuda)
     before = msm_recode.signed_digits_cuda.launches
     for args in ((sc, inf.cpu(), 12, 64), (sc.int(), inf, 12, 64), (sc, inf.int(), 12, 64),
                  (sc[:, :3], inf, 12, 64), (sc, inf[:32], 12, 64), (sc, inf, 12, 32),
-                 (sc, inf, 0, 64), (sc.t().contiguous().t(), inf, 12, 64)):
+                 (sc, inf, 0, 64), (sc.t().contiguous().t(), inf, 12, 64),
+                 (sc, inf, 12, 64, 23), (sc, inf, 12, 64, 21), (sc, inf, 5, 64, 53),
+                 (sc, inf, 5, 64, 50), (sc, inf, 17, 64, 17)):
         with pytest.raises(ValueError):
             msm_recode.signed_digits_cuda(*args)
     assert msm_recode.signed_digits_cuda.launches == before
@@ -660,16 +697,23 @@ def test_parallel_engines_world_one_on_card(cuda, world_one):
     assert np.array_equal(ntt_sharded(mesh, FALCON_512)(arrays[0].to(cuda)).cpu().numpy(), ntt(x))
 
 
-def test_parallel_msm_world_one_on_card(cuda, world_one):
-    """g1_msm_gpu_sharded over one rank equals g1_msm_gpu and the native C
-    MSM at n = 2^12 - 3 (padded to 2^12)."""
+@pytest.mark.parametrize("window", [5, 12, 17])
+def test_parallel_msm_world_one_on_card(cuda, world_one, window):
+    """g1_msm_gpu_sharded over one rank equals the native C MSM at
+    n = 2^12 - 3 (padded to 2^12) on full-width scalars below 2^255 with
+    0, r - 1 and all ones below 2^255 among them, at windows 5 and 17,
+    which divide 255 (the recode takes one more window: one recode
+    launch), and at 12, where it also equals g1_msm_gpu."""
     n = (1 << 12) - 3
     rng = np.random.default_rng(65)
     arr = native_backend.g1_fixed_base_batch([int(x) for x in rng.integers(1, 2**62, n)])
-    sc = rng.integers(0, 2**63, size=(n, 4), dtype=np.uint64)
-    sc[:, 3] >>= np.uint64(2)
-    got = gpu_msm.g1_msm_gpu_sharded(arr, sc, gpu_msm.WINDOW, world_one)
-    assert got == gpu_msm.g1_msm_gpu(arr, sc, device=cuda) == native_backend.g1_msm(arr, sc)
+    sc = _recode_scalars(1, n, 65 + window)[0]
+    recode = msm_recode.signed_digits_cuda.launches
+    got = gpu_msm.g1_msm_gpu_sharded(arr, sc, window, world_one)
+    assert msm_recode.signed_digits_cuda.launches == recode + 1
+    assert got == native_backend.g1_msm(arr, sc) and got is not None
+    if window == gpu_msm.WINDOW:
+        assert got == gpu_msm.g1_msm_gpu(arr, sc, device=cuda)
 
 
 def test_dryrun_multichip_one_card(cuda):

@@ -147,6 +147,30 @@ def test_launch_raises_on_every_nonzero_return(mock_library):
             assert wrapper.launches == before, entry
 
 
+@pytest.mark.parametrize("window, nw", [(5, 51), (5, 52), (3, 86), (12, 22), (17, 16)])
+def test_recode_window_count_reaches_the_kernel(mock_library, window, nw):
+    """The recode's wrapper passes its window count to the C entry point
+    (before the stream) and sizes the digits (nw K, n_pad) by it; a count
+    but ceil(255 / w) and 255 // w + 1 is refused before any call."""
+    calls, _, _ = mock_library
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        dev = torch.device("cuda", 0)
+        scalars = torch.zeros((3, 8, 4), dtype=torch.int64, device=dev)
+        flags = torch.zeros(8, dtype=torch.bool, device=dev)
+        digits, _ = msm_recode.signed_digits_cuda(scalars, flags, window, 16, nw)
+        assert tuple(digits.shape) == (3 * nw, 16)
+        assert calls[-1][0] == "signed_digits_launch"
+        assert calls[-1][1][4:] == (8, 16, 3, window, nw, STREAM)
+        del calls[:]
+        before = msm_recode.signed_digits_cuda.launches
+        for bad in (nw - 1, nw + 1):
+            if bad in (msm_recode.n_windows(window), msm_recode.n_windows_carry(window)):
+                continue
+            with pytest.raises(ValueError, match="windows at w"):
+                msm_recode.signed_digits_cuda(scalars, flags, window, 16, bad)
+        assert calls == [] and msm_recode.signed_digits_cuda.launches == before
+
+
 @pytest.mark.parametrize("passes", [False, True])
 def test_entry_points_published_only_after_self_test(monkeypatch, passes):
     """A library whose self-test fails is never launched: every later

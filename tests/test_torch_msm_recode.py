@@ -1,6 +1,7 @@
 """The G1 MSM's signed-digit recode (ops/msm_recode.py) on the CPU: its
 plain version against the JAX package's host recode and against the
-port's numpy recode in the K-fold layout, the top-window overflow, and
+port's numpy recode in the K-fold layout, the top-window overflow, the
+extended window count that leaves no scalar below 2^255 a carry out, and
 the MSMs that now recode on the device (g1_msm_gpu, g1_msm_gpu_multi and
 the sharded MSM at 2 gloo ranks) on CPU tensors against the native C.
 Exact results: every comparison is equality."""
@@ -146,6 +147,82 @@ def test_top_window_carry_raises():
     arr = native_backend.g1_fixed_base_batch(list(range(1, 9)))
     arr.inf[:] = 1
     assert gpu_msm.g1_msm_gpu(arr, [R - 1] * 8, window=5, device="cpu") is None
+
+
+CARRY_WINDOWS = (3, 5, 12, 15, 17)
+
+
+def _full_width_rows(K: int, n: int, seed: int) -> np.ndarray:
+    """(K, n, 4) u64: rows 0, 1, r - 1 and all ones below 2^255, then
+    random scalars below 2^255."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(K):
+        ints = [0, 1, R - 1, (1 << 255) - 1]
+        ints += [int.from_bytes(rng.bytes(32), "little") >> 1 for _ in range(n - len(ints))]
+        out.append(ints_to_limbs(ints, 4))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("window", CARRY_WINDOWS)
+def test_plain_recode_carry_count_recombines(window, K):
+    """At n_windows_carry(w) windows (one more than ceil(255 / w) where w
+    divides 255) the plain recode of 0, 1, r - 1, all ones below 2^255
+    and random full-width scalars sets no flag, and its digits recombine
+    to the scalar: sum_j d_j 2^(w j) = s, each d_j = u_j + c_j - 2^w
+    c_(j+1) over the JAX package's unsigned windows u_j (`_window_digits`,
+    zero past its ceil(255 / w)) with carries c_j in {0, 1}, c_0 = 0 and
+    no carry out.  At the default count the digits are the first
+    ceil(255 / w) windows of the same recode, equal to the JAX package's
+    signed recode on every row that fits them."""
+    n, n_pad = 61, 64
+    nw, nwc = msm_recode.n_windows(window), msm_recode.n_windows_carry(window)
+    assert nwc == nw + (255 % window == 0)
+    sc, inf = _full_width_rows(K, n, 300 + window), _inf(n)
+    masked = np.where(inf[None, :, None], np.uint64(0), sc)
+    got, overflow = msm_recode.signed_digits(
+        torch.from_numpy(sc.view(np.int64)), torch.from_numpy(inf), window, n_pad, nwc)
+    assert got.shape == (nwc * K, n_pad) and got.dtype == torch.int32
+    assert overflow.item() == 0
+    got = got.numpy().reshape(nwc, K, n_pad)
+    assert not got[..., n:].any() and not got[..., :n][..., inf].any()
+    mag = (got & ((1 << window) - 1)).astype(np.int64)
+    d = np.where(got >> window, -mag, mag)[..., :n]
+    for k in range(K):
+        ints = [int.from_bytes(r.astype("<u8").tobytes(), "little") for r in masked[k]]
+        assert [sum(int(d[j, k, i]) << (window * j) for j in range(nwc))
+                for i in range(n)] == ints
+        u = np.zeros((nwc, n), np.int64)
+        u[:nw] = tm._window_digits(masked[k], window)
+        carry = np.zeros(n, np.int64)
+        for j in range(nwc):
+            nxt, rem = np.divmod(u[j] + carry - d[j, k], 1 << window)
+            assert not rem.any() and np.isin(nxt, (0, 1)).all()
+            carry = nxt
+        assert not carry.any()
+    default, flag = msm_recode.signed_digits(
+        torch.from_numpy(sc.view(np.int64)), torch.from_numpy(inf), window, n_pad)
+    assert np.array_equal(default.numpy(), got[:nw].reshape(nw * K, n_pad))
+    assert flag.item() == int(got[nw:].any())
+    for k in range(K):
+        fits = _jax_fits(masked[k], window)
+        want = np.asarray(tm._window_digits_signed(masked[k][fits], window))
+        assert np.array_equal(default.numpy().reshape(nw, K, n_pad)[:, k, :n][:, fits], want)
+
+
+def test_recode_wrapper_window_count_on_cpu():
+    """signed_digits_cuda on CPU tensors hands the count to the plain
+    version and refuses any count but ceil(255 / w) and 255 // w + 1."""
+    sc = torch.from_numpy(_full_width_rows(1, 8, 5)[0].view(np.int64))
+    inf = torch.zeros(8, dtype=torch.bool)
+    for window, nw in ((5, 52), (5, 51), (12, 22), (17, 16), (3, 86)):
+        got = msm_recode.signed_digits_cuda(sc, inf, window, 8, nw)
+        want = msm_recode.signed_digits(sc, inf, window, 8, nw)
+        assert got[0].shape == (nw, 8) and all(torch.equal(g, w) for g, w in zip(got, want))
+    for window, nw in ((5, 50), (5, 53), (12, 23), (12, 21), (17, 17), (0, None), (31, None)):
+        with pytest.raises(ValueError):
+            msm_recode.signed_digits_cuda(sc, inf, window, 8, nw)
 
 
 def _msm_case():

@@ -54,6 +54,10 @@ SCHOOLBOOK = tuple(_uniform(8, 512) for _ in range(3))
 MICROBATCH, N_MICRO = 3, 4
 PP_X = _uniform(MICROBATCH * N_MICRO, 512)
 BATCH_AXES = (4, 2, 1)
+# (world, batch dim) of the DP-only engines' further meshes: (1, 2) at
+# world 2, (4, 1) and (1, 4) at world 4
+WHOLE_ROW_MESHES = ((2, 1), (4, 4), (4, 1))
+WHOLE_ROW_INPUTS = {"dual": DUAL, "schoolbook": SCHOOLBOOK}
 
 
 def _jobs(world):
@@ -73,6 +77,9 @@ def _jobs(world):
         # the DP-only engines on a (2, 2) mesh: replicated over coeff
         cases += [("dual22", jobs.engine_job, ("dual", 512, 2, DUAL)),
                   ("schoolbook22", jobs.engine_job, ("schoolbook", 512, 2, SCHOOLBOOK))]
+    cases += [(f"{kind}-b{b}", jobs.engine_job, (kind, 512, b, arrays))
+              for w, b in WHOLE_ROW_MESHES if w == world
+              for kind, arrays in WHOLE_ROW_INPUTS.items()]
     return cases
 
 
@@ -177,6 +184,24 @@ def test_sharded_engine_schoolbook_coeff_mesh_matches_jax(ranks):
     mesh22 = jax_mesh.make_mesh(4, batch_axis=2)
     _assert_segments_equal(got, jax_mesh.sharded_engine_schoolbook(512, mesh22)(*SCHOOLBOOK))
     _assert_segments_equal(got, jitted_engine_schoolbook(512)(*SCHOOLBOOK))
+    assert calls == 0
+
+
+@pytest.mark.parametrize("kind", sorted(WHOLE_ROW_INPUTS))
+@pytest.mark.parametrize("world, batch_axis", WHOLE_ROW_MESHES)
+def test_whole_row_engine_meshes_match_jax(ranks, world, batch_axis, kind):
+    """The dual and schoolbook engines on the (1, 2) mesh at world 2 and
+    the (4, 1) and (1, 4) meshes at world 4, n = 512, B = 8: the segments
+    equal JAX's sharded_engine_{dual,schoolbook} on make_mesh(world,
+    batch_axis) (replicated over "coeff") and its single-device jitted
+    engine; no partner exchange."""
+    got, calls = ranks[world][f"{kind}-b{batch_axis}"]
+    arrays = WHOLE_ROW_INPUTS[kind]
+    sharded = {"dual": jax_mesh.sharded_engine_dual,
+               "schoolbook": jax_mesh.sharded_engine_schoolbook}[kind]
+    single = {"dual": jitted_engine_dual, "schoolbook": jitted_engine_schoolbook}[kind]
+    _assert_segments_equal(got, sharded(512, jax_mesh.make_mesh(world, batch_axis))(*arrays))
+    _assert_segments_equal(got, single(512)(*arrays))
     assert calls == 0
 
 

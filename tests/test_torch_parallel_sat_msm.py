@@ -28,7 +28,7 @@ from falcon_r1cs_tpu_torch.parallel import ResidueSystem, jobs
 from falcon_r1cs_tpu_torch.parallel.launch import run_group
 from falcon_r1cs_tpu_torch.parallel.sat_check import row_partition, shard_coo
 from falcon_r1cs_tpu_torch.snark import bls12_381 as bls
-from falcon_r1cs_tpu_torch.snark import gpu_msm
+from falcon_r1cs_tpu_torch.snark import gpu_msm, native_backend
 from falcon_r1cs_tpu_torch.snark.points import G1Array
 
 SEED, BUMP_AT = 7, 5555  # the instance; the assignment value bumped by one
@@ -48,19 +48,28 @@ def _msm_inputs():
 
 
 MSM_POINTS, MSM_SCALARS = _msm_inputs()
+# r - 1 on every point but the zero scalar's
+MSM_TOP = [0 if s == 0 else bls.R - 1 for s in MSM_SCALARS]
+FULL_WIDTH = {"random": MSM_SCALARS, "r-1": MSM_TOP}
+# windows 3 and 5 divide 255: the top window carries out of ceil(255 / w)
+# windows on most scalars below r; 4 and 12 leave it room.  Window 12
+# (2049 buckets, ~17 s a shard on the CPU) runs on r - 1 only.
+MSM_CASES = [(w, name) for w in (3, 4, 5) for name in sorted(FULL_WIDTH)] + [(12, "r-1")]
 
 
 @pytest.fixture(scope="module")
 def ranks():
-    """{world: [rank 0's results]}: the sharded check at 2 and 4 ranks,
-    the sharded MSM at 2."""
+    """{world: {case: rank 0's result}}: the sharded check ("sat") and the
+    sharded MSM over the 40 points at each (window, FULL_WIDTH scalars) of
+    MSM_CASES, at 2 and 4 ranks."""
     out = {}
+    arr = G1Array.from_affine_list(MSM_POINTS)
     for world in (2, 4):
-        cases = [(jobs.sat_job, (SEED, BUMP_AT, "cpu"))]
-        if world == 2:
-            arr = G1Array.from_affine_list(MSM_POINTS)
-            cases.append((jobs.msm_job, (arr, MSM_SCALARS, MSM_WINDOW, "cpu")))
-        out[world] = run_group(jobs.run_all, world, "cpu", cases, timeout_s=240)
+        cases = {"sat": (jobs.sat_job, (SEED, BUMP_AT, "cpu"))}
+        for window, name in MSM_CASES:
+            cases[window, name] = (jobs.msm_job, (arr, FULL_WIDTH[name], window, "cpu"))
+        results = run_group(jobs.run_all, world, "cpu", list(cases.values()), timeout_s=240)
+        out[world] = dict(zip(cases, results))
     return out
 
 
@@ -86,7 +95,7 @@ def test_check_device_sharded_matches_jax(ranks, jax_assignments, world):
     rs = JaxResidueSystem(compiled)
     want = rs.check_device_sharded(rs.witness_residues(assign),
                                    jax_make_mesh(world, batch_axis=world), axis="batch")
-    assert ranks[world][0] == [True, False] == np.asarray(want).tolist()
+    assert ranks[world]["sat"] == [True, False] == np.asarray(want).tolist()
 
 
 @pytest.fixture(scope="module")
@@ -149,12 +158,30 @@ def test_row_partition_matches_jax_transcription(port_system, D):
 def test_msm_sharded_matches_single_and_host(ranks):
     """g1_msm_gpu_sharded over 2 ranks (shards of 32 and 8 points) equals
     g1_msm_gpu on one device and the JAX package's host MSM."""
-    got = ranks[2][1]
+    got = ranks[2][MSM_WINDOW, "random"]
     arr = G1Array.from_affine_list(MSM_POINTS)
     assert got == gpu_msm.g1_msm_gpu(arr, MSM_SCALARS, MSM_WINDOW, device="cpu")
     jac = [jax_bls.g1_from_affine(p) for p in MSM_POINTS]
     assert got == jax_bls.g1_to_affine(jax_msm.g1_msm(jac, MSM_SCALARS))
     assert got is not None
+
+
+@pytest.mark.parametrize("window, scalars", MSM_CASES)
+@pytest.mark.parametrize("world", [2, 4])
+def test_msm_sharded_full_width_matches_host(ranks, world, window, scalars):
+    """g1_msm_gpu_sharded over 2 and 4 ranks (shards of 32 + 8, and 16 +
+    16 + 8 + none) at windows 3 and 5, which divide 255, and 4, on r - 1
+    and on random scalars below r, and at 12 on r - 1: equal to the JAX package's host
+    MSM, which its g1_msm_tpu_sharded returns, and to the port's native C.
+    Each rank recodes to 255 // w + 1 windows, so no top window carries
+    out (at ceil(255 / w) windows w = 3 and 5 raised the recode's
+    overflow)."""
+    got = ranks[world][window, scalars]
+    sc = FULL_WIDTH[scalars]
+    jac = [jax_bls.g1_from_affine(p) for p in MSM_POINTS]
+    want = jax_bls.g1_to_affine(jax_msm.g1_msm(jac, sc))
+    assert got == want and want is not None
+    assert got == native_backend.g1_msm(G1Array.from_affine_list(MSM_POINTS), sc)
 
 
 def test_dryrun_multichip_cpu():
