@@ -454,15 +454,17 @@ def witness_map_launches(counted, compiled, proves: int = 1) -> dict:
     """The Fr kernels' launches of `proves` witness maps on the card
     (snark/gpu_qap.py) over `compiled`'s domain of 2^k points, the first
     with the set-up of its cache (the CSR values of A, B and C entered,
-    four tables): z entered, three sparse products, seven transforms (a
-    tile and k - 10 wide stages each), the quotient, the exit."""
+    four tables): z entered, three sparse products, seven transforms (k -
+    10 wide stages each; the tiles of the first six in one round-trip
+    launch, the last one's alone), the quotient, the exit: 8 + 7 (k - 10)
+    a warm map."""
     from falcon_r1cs_tpu_torch.ops.fr import TILE_LOG
     from falcon_r1cs_tpu_torch.snark.qap import qap_domain
 
     wide = max(0, qap_domain(compiled).log_size - TILE_LOG)
     return {k: v for k, v in {
         "fr_to_mont_kernel": proves + 3, "fr_spmv_kernel": 3 * proves,
-        "fr_ntt_tile_kernel": 7 * proves, "fr_ntt_stage_kernel": 7 * wide * proves,
+        "fr_ntt_tile_kernel": 2 * proves, "fr_ntt_stage_kernel": 7 * wide * proves,
         "fr_quotient_kernel": proves, "fr_from_mont_kernel": proves,
         "fr_powers_kernel": 4}.items() if k in counted}
 
@@ -1273,9 +1275,13 @@ def semi_kernel_vs_plain(dev, launches, build_log):
                             cuda_ntt.ntt_with_hints_cuda(x, p)):
             assert torch.equal(a, c) and torch.equal(a, k1), \
                 f"ntt_with_hints_v3 n={p.n} != ntt_with_hints or K1"
-        _, _, kernels, _ = device_kernel_ms(lambda: entry(x, p), keep=())
-        assert [c for _, _, c in kernels] == [1] and "ntt_semi_kernel" in kernels[0][0], \
-            f"one entry call ran {kernels}, not one K8 kernel"
+        # ten entry calls in one window: every kernel it caught is K8 (no
+        # torch normalise or divmod), at most one a call (the profiler can
+        # drop rows: a window of one call caught none in five tries, run CJ;
+        # the launch counts of semi_path hold one K8 launch a call exactly)
+        _, _, kernels, _ = device_kernel_ms(lambda: [entry(x, p) for _ in range(10)], keep=())
+        assert kernels and all("ntt_semi_kernel" in key for key, _, _ in kernels) and \
+            sum(c for _, _, c in kernels) <= 10, f"ten entry calls ran {kernels}, not K8 alone"
         ms = cuda_ms(lambda: wrapper(x, p))
         dev_ms = kernel_device_ms(wrapper, (x, p), "ntt_semi_kernel")
         plain_ms = cuda_ms(lambda: wrapper.plain(x, p), reps=10, inner=2)
@@ -1370,21 +1376,30 @@ def ptxas(build_log, kernel, threads, dyn_smem=0):
 def kernel_device_ms(wrapper, args, kernel, calls=10, tries=5, alone=False):
     """The kernel alone: profiler device ms a launch, from a window of
     `calls` wrapper calls that caught exactly `calls` launches of the
-    kernels whose names hold `kernel`.  The profiler can drop rows, so up
-    to `tries` windows are taken; raises if none was whole.  The CUDA-event
-    time of back-to-back wrapper calls is the longer of this and the
-    wrapper's host cost a call.  The device time is every kernel's of the
-    window, or with `alone` only those rows' (a wrapper that also fills a
-    tensor, as the recode's flag)."""
+    kernels whose names hold `kernel`.  The device time is every kernel's
+    of the window, or with `alone` only those rows' (a wrapper that also
+    fills a tensor, as the recode's flag), and then over the launches the
+    window caught.  The CUDA-event time of back-to-back wrapper calls is
+    the longer of this and the wrapper's host cost a call.  The profiler
+    can drop rows (one of ten in every window: the round-trip tile in runs
+    CF and CH, the K8 entry in CK; PERF.md section 7), so up to `tries`
+    windows are taken; if none was whole, the kernel's own rows over the
+    launches the last window caught, logged as such (each row carries its
+    own launches' time); raises if it caught none."""
     for _ in range(tries):
         _, busy, rows, _ = device_kernel_ms(lambda: [wrapper(*args) for _ in range(calls)],
                                          keep=(kernel,))
         caught = sum(c for key, _, c in rows if kernel in key)
-        if alone:
-            busy = sum(ms for key, ms, _ in rows if kernel in key)
+        own = sum(ms for key, ms, _ in rows if kernel in key)
+        if alone and caught:
+            return own / caught
         if caught == calls:
             return busy / calls
-    raise RuntimeError(f"{calls} launches of {kernel} expected, the profiler caught {rows}")
+    if not caught:
+        raise RuntimeError(f"{calls} launches of {kernel} expected, the profiler caught {rows}")
+    log(f"{kernel}: no profiler window of {tries} caught all {calls} launches; device ms "
+        f"over the {caught} the last one caught")
+    return own / caught
 
 
 def select_path_rows(m, dev, seed=20261019):
@@ -1552,11 +1567,13 @@ def bucket_kernel_vs_plain(dev, launches, build_log):
     placed bit-reversed as `gpu_msm._window_sums` does, one group of 22
     windows at n_pad 2^17 (cell B's h query) and 2^18 (the Falcon-1024
     prove); H, T and the bridge random limbs and flags (the level moves
-    them, whatever they hold).  Levels 1 (the affine leaves), 2 and the
-    root at both sizes.  Times of level 2 (the widest Jacobian level) and
-    level 1: CUDA events of the wrapper, the plain version, profiler
-    device ms; bound: the bytes that level's data needs
-    (`bucket_level_bytes`) over the card's rate; the buckets each level
+    them, whatever they hold).  Every level of the 2^17 group (its 17
+    launches: level 1 over the affine leaves, the root the last), levels
+    1, 2 and the root at 2^18, each bit-equal.  Times of each level but
+    the 2^18 root: CUDA events of the wrapper, the plain version, profiler
+    device ms; bound:
+    the bytes that level's data needs (`bucket_level_bytes`) over the
+    card's rate, and its share of the device time; the buckets each level
     of the 2^17 group writes, which sum to the group's distinct (window,
     key) pairs; the ptxas lines of both instantiations (level 1's, affine,
     under `affine_ptxas`)."""
@@ -1587,7 +1604,10 @@ def bucket_kernel_vs_plain(dev, launches, build_log):
         emissions = bucket_emissions(keys)
         distinct = sum(int(keys[w].unique().numel()) for w in range(W))
         assert sum(emissions) == distinct, (sum(emissions), distinct)
-        for c in (n, n // 2, 2):
+        # every level of the 2^17 group (level 1 the widest, the root at
+        # c = 2), the widest two and the root at 2^18
+        levels = [n >> i for i in range(log_n)] if log_n == 17 else [n, n // 2, 2]
+        for c in levels:
             if c == n:
                 H = T = (limbs(35, W, n), limbs(35, W, n), None, flags(W, n))
                 kf = kl = keys
@@ -1607,7 +1627,7 @@ def bucket_kernel_vs_plain(dev, launches, build_log):
                             want[0] + want[1] + want[2:] + bank):
                 assert a.dtype == b.dtype and torch.equal(a, b), \
                     f"bucket_level_kernel n_pad 2^{log_n} c={c} differs from its plain version"
-            if c == 2:
+            if c == 2 and log_n != 17:
                 continue
             del got, want
             ms = cuda_ms(lambda: wrapper(*args))
@@ -1615,13 +1635,15 @@ def bucket_kernel_vs_plain(dev, launches, build_log):
             dev_ms = kernel_device_ms(wrapper, args, "bucket_level_kernel", calls=4)
             nbytes, emitted = bucket_level_bytes(kf, kl, c == n)
             bound_ms, _ = bound(nbytes, 0)
-            level = 1 if c == n else 2
+            level = log_n + 2 - c.bit_length()
             log(f"bucket_level_kernel n_pad 2^{log_n}, {W} windows, level {level} ({c} lanes in, "
                 f"{emitted} buckets written): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB); "
-                "bit-equal at levels 1, 2 and the root, the bank included")
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB, "
+                f"{100 * bound_ms / dev_ms:.1f} % of the device time); bit-equal, the bank "
+                "included")
             out[(log_n, level)] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
-                                       bound_ms=bound_ms, nbytes=nbytes, buckets=emitted)
+                                       bound_ms=bound_ms, bound_share=bound_ms / dev_ms,
+                                       nbytes=nbytes, buckets=emitted)
             del args, H, T, bridge, bank, got_bank
         out[(log_n, "emissions")] = emissions
         log(f"bucket_level_kernel n_pad 2^{log_n}: buckets written a level, level 1 first: "
@@ -1762,24 +1784,184 @@ def fq_kernels_vs_plain(dev, launches, build_log):
 FR_MONT_MULS = 2 * 8 * 8 + 8 * (1 + 2 * 8)
 
 
+def falcon512_witness():
+    """(compiled, z) of cell B's Falcon-512 verify-with-NTT proof (domain
+    2^17): the circuit and the host trace's assignment, as the card test
+    and tools.profile_prove take them."""
+    from falcon_r1cs_tpu_torch import FALCON_512
+    from falcon_r1cs_tpu_torch.falcon import make_instance
+    from falcon_r1cs_tpu_torch.r1cs.coo import compile_circuit
+    from falcon_r1cs_tpu_torch.tools.profile_prove import CIRCUIT, trace_assignment
+
+    inst = make_instance(np.random.default_rng(5), FALCON_512)
+    _, z = trace_assignment(inst)
+    return compile_circuit(CIRCUIT, inst, cache=False), z
+
+
+def spmv_bytes_ops(row_ptr, nnz, nz, n):
+    """(bytes, int32 multiplies) of one sparse product: row_ptr, cols, the
+    row order, the values, z and out each moved once; a product a
+    nonzero."""
+    return 4 * (row_ptr.shape[0] + nnz + n) + 32 * (nnz + nz + n), FR_MONT_MULS * nnz
+
+
+def tile_bytes_ops(n, t, nvec, round_trip, scaled):
+    """(bytes, int32 multiplies) of one tile launch over nvec vectors of n
+    in tiles of t: x read and written, the scale (one table for all
+    vectors) and the twiddle prefixes (t each) read once; a product a
+    butterfly of the log2 t stages (twice that in the round trip) and a
+    scaled element."""
+    stages = t.bit_length() - 1
+    tables = 2 if round_trip else 1
+    nbytes = 32 * (2 * nvec * n + (n if scaled else 0) + tables * t)
+    products = nvec * (n // 2 * stages * tables + (n if scaled else 0))
+    return nbytes, FR_MONT_MULS * products
+
+
 def fr_kernels_vs_plain(dev, launches, witness, build_log):
     """The witness map's seven Fr kernels (csrc/fr_mont.cu) against their
     plain versions (ops/fr.py, run on the same card tensors), word for
     word, at the shapes of the Falcon-1024 prove's witness map (domain
     2^18; `witness` the groth16 path's (compiled, z), its cache on the
     card): the entry of z, A's sparse product (B's and C's timed beside
-    it), the DIF tile with the coset scale, the widest DIF stage, the
-    quotient, the exit with the bit-reversed rows, the stage twiddles of
-    w.  Times: CUDA events of the wrapper and of the plain version,
-    profiler device ms; bound: the bytes each must move (each input read
-    once, each output written once) and its int32 multiplies
-    (FR_MONT_MULS a product; the twiddles' products counted from this
-    run's exponents); ptxas.  The whole witness map by CUDA events and
-    under the profiler rides in the entry's record.  `launches`: the
-    groth16 path's prove run."""
+    it, and A's short and long rows each alone), the round-trip tile over
+    a, b and c (the DIF tile with h's scale, and the six single-form tiles
+    that the round trip replaces, timed beside it), the widest DIF stage,
+    the quotient, the exit with the bit-reversed rows, the stage twiddles
+    of w.  The two redesigned kernels, the sparse product and the tile,
+    also at cell B's Falcon-512 witness map (2^17).  Times: CUDA events
+    of the wrapper and of the plain version, profiler device ms; bound:
+    the bytes each must move (each input read once, each output written
+    once) and its int32 multiplies (FR_MONT_MULS a product; the
+    twiddles' products counted from this run's exponents); ptxas and SM
+    residency.  The whole
+    witness map by CUDA events and under the profiler, at both domains,
+    rides in the entry's record.  `launches`: the groth16 path's prove
+    run."""
     from falcon_r1cs_tpu_torch.ops import fr
     from falcon_r1cs_tpu_torch.snark import gpu_qap
     from falcon_r1cs_tpu_torch.snark.native_backend import z_rows
+
+    def timed(name, wrapper, args, make, nbytes, ops, plain_reps=3, kernel=None):
+        """Equal word for word to the plain version on make()'s inputs, then
+        ms, plain ms, device ms and the bound of wrapper(*args)."""
+        got = wrapper(*make())
+        torch.cuda.synchronize()
+        want = wrapper.plain(*make())
+        err = max_abs_err([got], [want])
+        assert err == 0 and got.dtype == want.dtype, f"{name} differs from its plain version"
+        del got, want
+        ms = cuda_ms(lambda: wrapper(*args))
+        plain_ms = cuda_ms(lambda: wrapper.plain(*make()), reps=plain_reps, inner=1)
+        dev_ms = kernel_device_ms(wrapper, args, kernel or name, alone=True)
+        bound_ms, bound_by = bound(nbytes, ops)
+        return dict(err=err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, bound_share=bound_ms / dev_ms, nbytes=nbytes, ops=ops)
+
+    def line(label, k, rec):
+        log(f"{label} at 2^{k}: kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f} ms), "
+            f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}; {100 * rec['bound_share']:.1f} % of it); equal word for word")
+
+    def map_on_card(compiled, z, k):
+        wm = lambda: gpu_qap.witness_map_gpu(compiled, z, dev)  # noqa: E731
+        wm_ms = cuda_ms(wm, reps=5, inner=2)
+        _, busy, top, count = device_kernel_ms(wm, keep=("fr_",))
+        log(f"witness map 2^{k} on the card: {wm_ms:.3f} ms (CUDA events), device "
+            f"{busy:.3f} ms in {count} rows (idle share {1 - busy / wm_ms:.3f})")
+        for key, kms, c in top:
+            log(f"  {kms:9.4f} ms  x{c:<4d} {key}")
+        return {"ms": wm_ms, "device_ms": busy, "launches": count,
+                "idle_share": 1 - busy / wm_ms}
+
+    def spmv_subset(cache, keep_long, zt, n):
+        """A's CSR with only its long rows (keep_long) or only its short
+        rows: the other rows emptied, their bins rebuilt."""
+        row_ptr, cols, vals = cache["a"]
+        order, n_long = cache["a_bins"]
+        rp = row_ptr.cpu().numpy().astype(np.int64)
+        lengths = np.diff(rp)
+        is_long = np.zeros(len(lengths), dtype=bool)
+        is_long[order[:n_long].cpu().numpy()] = True
+        keep = is_long if keep_long else ~is_long
+        new_lengths = np.where(keep, lengths, 0)
+        new_rp = np.zeros(len(rp), dtype=np.int32)
+        np.cumsum(new_lengths, out=new_rp[1:])
+        entries = np.repeat(keep, lengths)
+        idx = torch.from_numpy(np.flatnonzero(entries)).to(dev)
+        sub_order, sub_long = fr.spmv_order(new_rp, n)
+        return (torch.from_numpy(new_rp).to(dev), cols[idx].contiguous(),
+                vals[:, idx].contiguous(), zt, n, 0), \
+            (torch.from_numpy(sub_order).to(dev), sub_long), int(entries.sum())
+
+    at = {}
+    for compiled, z in (witness, falcon512_witness()):
+        cache = gpu_qap._cache(compiled, dev)
+        n, k = cache["dom"].size, cache["dom"].log_size
+        ni = compiled.num_instance
+        zt = fr.to_mont_cuda(torch.from_numpy(z_rows(z).view(np.int64)).to(dev))
+        nz = zt.shape[1]
+        evals = torch.empty((3, fr.WORDS, n), dtype=torch.int32, device=dev)
+        for x, m in zip(evals, "abc"):
+            fr.spmv_cuda(*cache[m], zt, n, ni if m == "a" else 0, bins=cache[f"{m}_bins"], out=x)
+        recs = {}
+        for m in "abc":
+            row_ptr, cols, _ = cache[m]
+            margs = (*cache[m], zt, n, ni if m == "a" else 0)
+            bins = cache[f"{m}_bins"]
+            call = lambda *a, bins=bins: fr.spmv_cuda(*a, bins=bins)  # noqa: E731
+            call.plain = lambda *a, bins=bins: fr.spmv(*a, bins=bins)
+            call.launches = 0
+            nbytes, ops = spmv_bytes_ops(row_ptr, cols.shape[0], nz, n)
+            recs[m] = timed(f"fr_spmv_kernel {m}", call, margs, lambda margs=margs: margs,
+                            nbytes, ops, kernel="fr_spmv_kernel")
+            recs[m] |= {"nnz": cols.shape[0], "long_rows": bins[1]}
+            line(f"fr_spmv_kernel {m.upper()} ({cols.shape[0]} nonzeros, {bins[1]} long rows)",
+                 k, recs[m])
+        for keep_long in (True, False):
+            margs, bins, nnz = spmv_subset(cache, keep_long, zt, n)
+            call = lambda *a, bins=bins: fr.spmv_cuda(*a, bins=bins)  # noqa: E731
+            call.plain = lambda *a, bins=bins: fr.spmv(*a, bins=bins)
+            nbytes, ops = spmv_bytes_ops(margs[0], nnz, nz, n)
+            key = "a_long_rows" if keep_long else "a_short_rows"
+            recs[key] = timed(f"fr_spmv_kernel {key}", call, margs, lambda margs=margs: margs,
+                              nbytes, ops, plain_reps=1, kernel="fr_spmv_kernel")
+            recs[key] |= {"nnz": nnz, "long_rows": bins[1]}
+            line(f"fr_spmv_kernel A, {'long' if keep_long else 'short'} rows alone ({nnz} "
+                 "nonzeros)", k, recs[key])
+        tw, tw_inv, scale = cache["tw"], cache["tw_inv"], cache["scale"]
+        t = min(n, 1 << fr.TILE_LOG)
+        nbytes, ops = tile_bytes_ops(n, t, 3, True, True)
+        trip = (evals.clone(), tw_inv, True, scale, tw)
+        recs["tile"] = timed("fr_ntt_tile_kernel round trip", fr.ntt_tile_cuda, trip,
+                             lambda: (evals.clone(), tw_inv, True, scale, tw), nbytes, ops,
+                             kernel="fr_ntt_tile_kernel")
+        line("fr_ntt_tile_kernel round trip (a, b, c: DIF over w^-1, scale, DIT over w)", k,
+             recs["tile"])
+        h = evals[0].clone()
+        nbytes, ops = tile_bytes_ops(n, t, 1, False, True)
+        recs["tile_dif_scale"] = timed(
+            "fr_ntt_tile_kernel DIF + scale", fr.ntt_tile_cuda,
+            (h, tw_inv, True, cache["scale_inv"]),
+            lambda: (evals[0].clone(), tw_inv, True, cache["scale_inv"]), nbytes, ops,
+            kernel="fr_ntt_tile_kernel")
+        line("fr_ntt_tile_kernel DIF + scale (h's last tile)", k, recs["tile_dif_scale"])
+        single = evals.clone()
+
+        def six():
+            for v in single:
+                fr.ntt_tile_cuda(v, tw_inv, True, scale)
+                fr.ntt_tile_cuda(v, tw, False)
+
+        six_ms = cuda_ms(six)
+        _, six_busy, _, _ = device_kernel_ms(six, keep=("fr_ntt_tile",))
+        recs["six_single_tiles"] = {"ms": six_ms, "device_ms": six_busy}
+        log(f"the same three vectors as six single-form tile launches (DIF + scale, DIT): "
+            f"{six_ms:.4f} ms (device {six_busy:.4f} ms) against the round trip's "
+            f"{recs['tile']['ms']:.4f} ms (device {recs['tile']['device_ms']:.4f} ms)")
+        recs["witness_map"] = map_on_card(compiled, z, k)
+        at[k] = recs
+        del evals, single, h, trip
 
     compiled, z = witness
     cache = gpu_qap._cache(compiled, dev)
@@ -1788,26 +1970,16 @@ def fr_kernels_vs_plain(dev, launches, witness, build_log):
     rows = torch.from_numpy(z_rows(z).view(np.int64)).to(dev)
     nz = rows.shape[0]
     zt = fr.to_mont_cuda(rows)
-    evals = [fr.spmv_cuda(*cache[m], zt, n, compiled.num_instance if m == "a" else 0)
-             for m in "abc"]
+    evals = [fr.spmv_cuda(*cache[m], zt, n, compiled.num_instance if m == "a" else 0,
+                          bins=cache[f"{m}_bins"]) for m in "abc"]
     x = evals[0]
     one = fr.planes_of([1], dev)
     sq = fr.squares_of(dom.omega, dev)
     e = fr.exponents(n, k, fr.MODE_STAGE)
     popcount = sum(int(((e >> b) & 1).sum()) for b in range(k))
-    row_ptr, cols, _ = cache["a"]
-    nnz = cols.shape[0]
-    ni = compiled.num_instance
     cases = [
         ("fr_to_mont_kernel", fr.to_mont_cuda, lambda: (rows,), 64 * nz,
          FR_MONT_MULS * nz, "fr_to_mont_kernel", 256),
-        ("fr_spmv_kernel", fr.spmv_cuda, lambda: (*cache["a"], zt, n, ni),
-         4 * (row_ptr.shape[0] + nnz) + 32 * (nnz + nz + n), FR_MONT_MULS * nnz,
-         "fr_spmv_kernel", 256),
-        ("fr_ntt_tile_kernel", fr.ntt_tile_cuda,
-         lambda: (x.clone(), cache["tw_inv"], True, cache["scale"]),
-         32 * (3 * n + (1 << fr.TILE_LOG)), FR_MONT_MULS * (n // 2 * fr.TILE_LOG + n),
-         "fr_ntt_tile_kernelILb1", 1 << (fr.TILE_LOG - 1)),
         ("fr_ntt_stage_kernel", fr.ntt_stage_cuda,
          lambda: (x.clone(), cache["tw_inv"], k - 1, True), 32 * (2 * n + n // 2),
          FR_MONT_MULS * n // 2, "fr_ntt_stage_kernelILb1", 256),
@@ -1827,45 +1999,46 @@ def fr_kernels_vs_plain(dev, launches, witness, build_log):
         torch.cuda.synchronize()
         assert torch.equal(got, wrapper.plain(*make())), f"DIT {wrapper.__name__} != plain"
         log(f"DIT {wrapper.__name__} at 2^{k}: equal word for word")
+    source = "falcon_r1cs_tpu_torch/csrc/fr_mont.cu"
+    replaces = ("none: the JAX package's witness map is host C "
+                "(falcon_r1cs_tpu/snark/native_backend.py:312)")
     records = []
     for name, wrapper, make, nbytes, ops, mangled, threads in cases:
-        got = wrapper(*make())
-        torch.cuda.synchronize()
-        want = wrapper.plain(*make())
-        err = max_abs_err([got], [want])
-        assert err == 0 and got.dtype == want.dtype, f"{name} differs from its plain version"
-        args = make()
-        ms = cuda_ms(lambda: wrapper(*args))
-        plain_ms = cuda_ms(lambda: wrapper.plain(*make()), reps=3, inner=1)
-        dev_ms = kernel_device_ms(wrapper, args, name, alone=True)
-        bound_ms, bound_by = bound(nbytes, ops)
+        rec = timed(name, wrapper, make(), make, nbytes, ops)
         extra = {}
-        if name == "fr_spmv_kernel":
-            for m in "bc":
-                margs = (*cache[m], zt, n, 0)
-                m_got = wrapper(*margs)
-                assert torch.equal(m_got, wrapper.plain(*margs)), f"{name} {m} != plain"
-                extra[f"{m}_ms"] = cuda_ms(lambda: wrapper(*margs))
-                extra[f"{m}_lanes"] = fr.spmv_lanes(cache[m][1].shape[0], compiled.num_constraints)
-            extra |= {"nnz": nnz, "lanes": fr.spmv_lanes(nnz, compiled.num_constraints)}
         if name == "fr_to_mont_kernel":
-            wm = lambda: gpu_qap.witness_map_gpu(compiled, z, dev)  # noqa: E731
-            wm_ms = cuda_ms(wm, reps=5, inner=2)
-            wall, busy, top, count = device_kernel_ms(wm, keep=("fr_",))
-            extra["witness_map"] = {"ms": wm_ms, "device_ms": busy, "launches": count,
-                                    "idle_share": 1 - busy / wm_ms}
-            log(f"witness map 2^{k} on the card: {wm_ms:.3f} ms (CUDA events), kernels "
-                f"{busy:.3f} ms in {count} launches (idle share {1 - busy / wm_ms:.3f})")
-            for key, kms, c in top:
-                log(f"  {kms:9.4f} ms  x{c:<4d} {key}")
-        log(f"{name} at 2^{k}: kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); equal word for word")
+            extra["witness_map"] = {f"2^{kk}": at[kk]["witness_map"] for kk in at}
+        if name == "fr_quotient_kernel":
+            # two products and a subtraction, no loop: what a product
+            # issues, against the FR_MONT_MULS the bounds count
+            from falcon_r1cs_tpu_torch.ops import _build
+
+            (opcodes,) = [v for key, v in _build.sass_counts(_build.library_path()).items()
+                          if "fr_quotient_kernel" in key]
+            sass = {"imad": opcodes["IMAD"], "bra": opcodes["BRA"],
+                    "issued": sum(v for k, v in opcodes.items() if k != "NOP")}
+            extra["sass"] = sass
+            log(f"fr_quotient_kernel SASS a thread (two products): {sass}; the bounds count "
+                f"{FR_MONT_MULS} multiplies a product")
+        line(name, k, rec)
         records.append(record(
-            name, "falcon_r1cs_tpu_torch/csrc/fr_mont.cu",
-            "none: the JAX package's witness map is host C "
-            "(falcon_r1cs_tpu/snark/native_backend.py:312)",
-            launches[name], err, ms, plain_ms, nbytes, ops, device_ms=dev_ms,
-            **ptxas(build_log, mangled, threads), **extra))
+            name, source, replaces, launches[name], rec["err"], rec["ms"], rec["plain_ms"],
+            nbytes, ops, device_ms=rec["device_ms"], **ptxas(build_log, mangled, threads),
+            **extra))
+    spmv, tile = at[k]["a"], at[k]["tile"]
+    records.insert(1, record(
+        "fr_spmv_kernel", source, replaces, launches["fr_spmv_kernel"], spmv["err"],
+        spmv["ms"], spmv["plain_ms"], spmv["nbytes"], spmv["ops"], device_ms=spmv["device_ms"],
+        **ptxas(build_log, "fr_spmv_kernel", fr.SPMV_THREADS),
+        at={f"2^{kk}": {m: at[kk][m] for m in ("a", "b", "c", "a_long_rows", "a_short_rows")}
+            for kk in at}))
+    records.insert(2, record(
+        "fr_ntt_tile_kernel", source, replaces, launches["fr_ntt_tile_kernel"], tile["err"],
+        tile["ms"], tile["plain_ms"], tile["nbytes"], tile["ops"], device_ms=tile["device_ms"],
+        **ptxas(build_log, "fr_ntt_tile_kernelILi2E", (1 << fr.TILE_LOG) // fr.TILE_PER),
+        dif_ptxas=ptxas(build_log, "fr_ntt_tile_kernelILi0E", (1 << fr.TILE_LOG) // fr.TILE_PER),
+        at={f"2^{kk}": {m: at[kk][m] for m in ("tile", "tile_dif_scale", "six_single_tiles")}
+            for kk in at}))
     return records
 
 

@@ -33,16 +33,28 @@
 // - fr_from_mont_kernel: planes of n = 2^k -> (n, 4) u64 rows, one product
 //   by 1, element i written at row bitrev(i), so the last inverse
 //   transform, whose output is bit-reversed, needs no permutation pass;
-// - fr_spmv_kernel: out[row] = sum val z[col] over a CSR matrix, 2^L
-//   lanes a row (the wrapper picks L from the mean row length: A's rows
-//   run to 1,050 entries), each lane a strided share of the row, then a
-//   shuffle tree of Fr adds; rows nrows .. nrows + ncopy - 1 take z[0 ..
-//   ncopy - 1] (the instance rows of A), the rest of the n_out rows 0;
+// - fr_spmv_kernel: out[row] = sum val z[col] over a CSR matrix whose rows
+//   come binned by length (ops/fr.py spmv_order, once a circuit): the
+//   long rows (A's of 1,026 to 2,075 entries at 2^18) one CTA each, its
+//   256 threads a strided share of the row, summed by a warp shuffle tree
+//   of Fr adds and then across the 8 warps in shared memory; every other
+//   row of the n_out one thread a row, ordered by length from the longest
+//   (A's short rows hold 1, 2, 4 or 15 entries; a warp of one length
+//   wastes no lane on a longer neighbour): rows nrows .. nrows + ncopy - 1
+//   take z[0 .. ncopy - 1] (the instance rows of A), empty rows and the
+//   rest 0;
 // - fr_ntt_tile_kernel: the transform's stages whose butterflies lie in a
-//   tile of 2^log_t <= 1024 contiguous elements, in shared memory (32 KB),
-//   one CTA a tile, one thread a butterfly; DIT (bit-reversed in, the
-//   first stages) or DIF (natural in, the last stages, with an optional
-//   product by a table at the store: the coset scale g^{+-i} n^-1);
+//   tile of 2^log_t <= 1024 contiguous elements, over a batch of vectors:
+//   DIT (bit-reversed in, the first stages), DIF (natural in, the last
+//   stages, with an optional product by a table at the end: the coset
+//   scale n^-1 g^{+-bitrev(i)}), or the round trip of the witness map, the
+//   DIF stages over w^-1, the scale and the DIT stages over w in one pass
+//   while the tile stays on the SM.  One CTA a tile of any vector of the
+//   batch.  A thread holds 4 elements in registers and runs the stages in
+//   phases of up to 2; shared memory (32 KB) only exchanges words between
+//   phases, swizzled so that no warp access conflicts; the twiddle
+//   prefixes tw[0 .. 2^log_t), the same for every tile, come through the
+//   read-only cache;
 // - fr_ntt_stage_kernel: one stage of span 2h >= 2 tiles over device
 //   memory, one thread a butterfly;
 // - fr_quotient_kernel: a = (a b - c) zinv elementwise, in place;
@@ -59,9 +71,16 @@
 // witness map (domain 2^17, 846k nonzeros) is ~9.4 M products, 2.5 G
 // multiplies at 132 x 64 x 1.98e9 a second: ~0.15 ms; its bytes (the CSR
 // values 27 MB, z, two passes of 4.2 MB a global stage) ~0.05 ms at 3.35
-// TB/s.  At these sizes the ~60 launches a witness map and their
-// dependences decide the time: one launch a stage outside a tile is the
-// simple form; stages merged a pass are the next step.
+// TB/s.  So every kernel is built to keep the multiply pipe fed: the sparse
+// product gives no lane a row it does not need (each long row is many
+// threads' work, the short ones run in warps of one length) and loads each
+// product's operands while the one before it multiplies, and the tile
+// keeps its elements in registers across the stages of a phase, with no
+// barrier inside one, and enough warps an SM to cover the products'
+// dependent latency.  At these sizes the 57 launches of a witness map at
+// 2^17 (8 + 7 (k - 10)) and their dependences decide the rest: one launch
+// a stage outside a tile is the simple form; stages merged into one column
+// pass are the next step.
 
 #include <cuda_runtime.h>
 
@@ -73,6 +92,7 @@ namespace {
 
 constexpr int kW = 8;
 constexpr int kThreads = 256;
+constexpr int kSpmvThreads = 256;  // a long row's CTA: 4 products a thread at 1,027
 constexpr int kTileLog = 10;
 constexpr int kTile = 1 << kTileLog;
 constexpr int kMaxLog = 32;  // rows of the squares table of fr_powers_kernel
@@ -227,31 +247,79 @@ fr_from_mont_kernel(const u32* __restrict__ x, ulonglong2* __restrict__ rows, in
                                       v.w[6] | static_cast<uint64_t>(v.w[7]) << 32);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// acc += the xor-partner lane's acc, every lane of the warp taking part
+__device__ __forceinline__ void shfl_add(Fr& acc, int off) {
+  Fr o;
+#pragma unroll
+  for (int k = 0; k < kW; ++k) o.w[k] = __shfl_xor_sync(0xffffffffu, acc.w[k], off);
+  add(acc, acc, o);
+}
+
+// acc += vals[k] z[cols[k]] for k = k, k + step, ... < end, in that
+// order; the next product's operands are loaded before the current
+// product runs, so the loads overlap the multiplies.
+__device__ __forceinline__ void dot(Fr& acc, const u32* __restrict__ vals, int nnz,
+                                    const int* __restrict__ cols, const u32* __restrict__ z,
+                                    int nz, int k, int end, int step) {
+  if (k >= end) return;
+  Fr v = load(vals, nnz, k), x = load(z, nz, cols[k]);
+  for (;;) {
+    const int next = k + step;
+    const bool more = next < end;
+    Fr nv, nx;
+    if (more) {
+      nv = load(vals, nnz, next);
+      nx = load(z, nz, cols[next]);
+    }
+    mont(v, v, x);
+    add(acc, acc, v);
+    if (!more) return;
+    v = nv;
+    x = nx;
+    k = next;
+  }
+}
+
+// order (n_out,): the n_long long rows, then every other row of out, by
+// length from the longest.  The first CTAs take those other rows, one a
+// thread, so the longest of them start first; the last n_long CTAs sum a
+// long row each: thread t the products k = begin + t, begin + t + 256, ...,
+// each warp a shuffle tree, then warp 0 the 8 warps' sums.
+__global__ void __launch_bounds__(kSpmvThreads)
 fr_spmv_kernel(const int* __restrict__ row_ptr, const int* __restrict__ cols,
                const u32* __restrict__ vals, int nnz, const u32* __restrict__ z, int nz,
-               u32* __restrict__ out, int n_out, int nrows, int ncopy, int lanes_log) {
-  const int lanes = 1 << lanes_log;
-  const int lane = threadIdx.x & (lanes - 1);
-  const int row = (blockIdx.x * kThreads + threadIdx.x) >> lanes_log;
+               u32* __restrict__ out, int n_out, int nrows, int ncopy,
+               const int* __restrict__ order, int n_long) {
+  constexpr int kWarps = kSpmvThreads / 32;
+  const int short_blocks = (n_out - n_long + kSpmvThreads - 1) / kSpmvThreads;
   Fr acc = {};
-  if (row < nrows) {
-    const int end = row_ptr[row + 1];
-    for (int k = row_ptr[row] + lane; k < end; k += lanes) {
-      Fr p = load(vals, nnz, k);
-      mont(p, p, load(z, nz, cols[k]));
-      add(acc, acc, p);
-    }
-  }
-  // every lane of the warp takes part: no thread has returned
-  for (int off = lanes >> 1; off > 0; off >>= 1) {
-    Fr o;
+  if (static_cast<int>(blockIdx.x) >= short_blocks) {
+    __shared__ u32 part[kW][kWarps];
+    const int row = order[blockIdx.x - short_blocks];
+    dot(acc, vals, nnz, cols, z, nz, row_ptr[row] + threadIdx.x, row_ptr[row + 1],
+        kSpmvThreads);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int off = 16; off > 0; off >>= 1) shfl_add(acc, off);
+    if (lane == 0) {
 #pragma unroll
-    for (int k = 0; k < kW; ++k) o.w[k] = __shfl_xor_sync(0xffffffffu, acc.w[k], off);
-    add(acc, acc, o);
+      for (int k = 0; k < kW; ++k) part[k][warp] = acc.w[k];
+    }
+    __syncthreads();
+    if (warp != 0) return;
+#pragma unroll
+    for (int k = 0; k < kW; ++k) acc.w[k] = lane < kWarps ? part[k][lane] : 0u;
+    for (int off = kWarps / 2; off > 0; off >>= 1) shfl_add(acc, off);
+    if (lane == 0) store(out, n_out, row, acc);
+    return;
   }
-  if (lane != 0 || row >= n_out) return;
-  if (row >= nrows && row - nrows < ncopy) acc = load(z, nz, row - nrows);
+  const int i = n_long + blockIdx.x * kSpmvThreads + threadIdx.x;
+  if (i >= n_out) return;
+  const int row = order[i];
+  if (row < nrows) {
+    dot(acc, vals, nnz, cols, z, nz, row_ptr[row], row_ptr[row + 1], 1);
+  } else if (row - nrows < ncopy) {
+    acc = load(z, nz, row - nrows);
+  }
   store(out, n_out, row, acc);
 }
 
@@ -272,44 +340,159 @@ __device__ __forceinline__ void butterfly(Fr& u, Fr& v, const Fr& w) {
   }
 }
 
-template <bool kDif>
-__global__ void __launch_bounds__(kTile / 2)
-fr_ntt_tile_kernel(u32* __restrict__ x, const u32* __restrict__ tw,
-                   const u32* __restrict__ scale, int n, int log_t) {
-  __shared__ u32 s[kW][kTile];
-  const int t = 1 << log_t;
-  const size_t base = static_cast<size_t>(blockIdx.x) << log_t;
-  for (int e = threadIdx.x; e < t; e += blockDim.x) {
+// -- the tile kernel -------------------------------------------------------
+//
+// A tile of t = 2^log_t elements, t / 4 threads (one for t <= 4), one CTA
+// a tile.  In a phase on the bit set s, thread q holds the 4 elements whose
+// index bits s, s + 1 are its slot m and whose other bits are q's (`elem`),
+// so each stage of span 2^(lh + 1), s <= lh < s + 2, pairs two of its
+// registers.  Phases: DIF from the top, stages hi .. max(0, hi - 1) on s =
+// max(0, hi - 1), hi = log_t - 1, log_t - 3, ...; DIT from the bottom,
+// stages lo .. min(lo + 1, log_t - 1) on s = min(lo, top), lo = 0, 2, ...;
+// top = max(0, log_t - 2), the set of the loads and stores from device
+// memory, where a warp's 32 threads read 32 consecutive elements.  At
+// log_t = 10 the sets run 8, 6, 4, 2, 0 (DIF), 0, 2, 4, 6, 8 (DIT): the
+// round trip exchanges 8 times, the scale between the halves in
+// registers.  The twiddles of a tile are the prefix tw[0 .. t) of the
+// stage table, the same for every tile: read through the read-only cache,
+// where the SM keeps them.
+//
+// Why 4 elements a thread: a product is one long dependent chain of
+// carries, and the SM covers its latency with warps better than with a
+// thread's independent products.  8 elements a thread (127 registers, 128
+// threads a tile) left 16 warps an SM and 768 tiles (2^18, three vectors)
+// in 528 CTA slots, 1.45 rounds: the round trip ran 0.41 ms, 3x its
+// bound, and with the twiddles in 64 KB of shared memory (2 CTAs an SM)
+// 0.45 ms; at 4 a thread a tile takes 256 threads under 85 registers (3
+// CTAs, 24 warps an SM, 396 slots: 768 tiles in 1.94 rounds) and 0.30 ms
+// (ops/tune_fr.py, PERF.md section 6).
+
+constexpr int kPerLog = 2;
+constexpr int kPer = 1 << kPerLog;           // elements a thread holds
+constexpr int kTileThreads = kTile / kPer;   // 256
+enum TileForm { kFormDif = 0, kFormDit = 1, kFormRoundTrip = 2 };
+
+// slot m of thread q on the bit set s: q's low s bits, m, q's other bits
+__device__ __forceinline__ int elem(int q, int s, int m) {
+  return (q & ((1 << s) - 1)) | (m << s) | ((q >> s) << (s + kPerLog));
+}
+
+// The exchange slot of element e: bits 5 and 6 of e flip the bank bits
+// 0x0a and 0x15.  On every set s a warp's 32 threads hold index bits
+// {0 .. s-1} and {s+2 .. 6} (s < 5) or {0 .. 4}; with these flips those
+// bits map onto the 5 bank bits one to one, so for each slot the warp's
+// 32 words lie in 32 banks.
+__device__ __forceinline__ int swz(int e) {
+  return e ^ (((e >> 5) & 1) * 0x0a) ^ (((e >> 6) & 1) * 0x15);
+}
+
+// The held elements move from bit set `from` to bit set `to` through the
+// planes sx[k][swz(e)]; the first barrier lets the last phase's readers of
+// sx finish.
+__device__ __forceinline__ void exchange(Fr (&r)[kPer], u32* sx, int q, int from, int to,
+                                         int slots) {
+  __syncthreads();
 #pragma unroll
-    for (int k = 0; k < kW; ++k) s[k][e] = x[k * static_cast<size_t>(n) + base + e];
+  for (int m = 0; m < kPer; ++m) {
+    if (m >= slots) break;
+    const int e = swz(elem(q, from, m));
+#pragma unroll
+    for (int k = 0; k < kW; ++k) sx[k * kTile + e] = r[m].w[k];
   }
   __syncthreads();
-  const int b = threadIdx.x;  // t / 2 threads, one butterfly each a stage
-  for (int st = 0; st < log_t; ++st) {
-    const int lh = kDif ? log_t - 1 - st : st;
-    const int h = 1 << lh;
-    const int j = b & (h - 1);
-    const int i = ((b >> lh) << (lh + 1)) | j;
-    Fr u, v;
 #pragma unroll
-    for (int k = 0; k < kW; ++k) {
-      u.w[k] = s[k][i];
-      v.w[k] = s[k][i + h];
-    }
-    butterfly<kDif>(u, v, load(tw, n, h + j));
+  for (int m = 0; m < kPer; ++m) {
+    if (m >= slots) break;
+    const int e = swz(elem(q, to, m));
 #pragma unroll
-    for (int k = 0; k < kW; ++k) {
-      s[k][i] = u.w[k];
-      s[k][i + h] = v.w[k];
-    }
-    __syncthreads();
+    for (int k = 0; k < kW; ++k) r[m].w[k] = sx[k * kTile + e];
   }
-  for (int e = threadIdx.x; e < t; e += blockDim.x) {
-    Fr v;
+}
+
+// The stages lh in [lo, hi] of one phase on bit set s (s <= lo, hi < s +
+// 2), DIF from the widest, DIT from the narrowest: stage lh = s + b pairs
+// slots m and m + 2^b with twiddle tw[h + j] (planes of n), j = the
+// element's index mod h (q's low s bits and m's low b bits).
+template <bool kDif>
+__device__ __forceinline__ void phase(Fr (&r)[kPer], int q, int s, int lo, int hi,
+                                      const u32* __restrict__ tw, int n) {
 #pragma unroll
-    for (int k = 0; k < kW; ++k) v.w[k] = s[k][e];
-    if (scale) mont(v, v, load(scale, n, base + e));
-    store(x, n, base + e, v);
+  for (int c = 0; c < kPerLog; ++c) {
+    const int b = kDif ? kPerLog - 1 - c : c;
+    const int lh = s + b;
+    if (lh < lo || lh > hi) continue;
+    const int h = 1 << lh;
+    const int low = q & ((1 << s) - 1);
+#pragma unroll
+    for (int p = 0; p < kPer / 2; ++p) {
+      const int m = ((p >> b) << (b + 1)) | (p & ((1 << b) - 1));
+      const int idx = h + (low | ((m & ((1 << b) - 1)) << s));
+      Fr w;
+#pragma unroll
+      for (int k = 0; k < kW; ++k) w.w[k] = __ldg(tw + k * static_cast<size_t>(n) + idx);
+      butterfly<kDif>(r[m], r[m + (1 << b)], w);
+    }
+  }
+}
+
+// x (nvec, 8, n) in place, tile blockIdx.x of the nvec n / 2^log_t; tw the
+// DIF or the DIT form's table (the round trip's DIF half), tw_dit the round
+// trip's DIT table; scale (8, n) or null.
+template <int kForm>
+__global__ void __launch_bounds__(kTileThreads, 3)
+fr_ntt_tile_kernel(u32* __restrict__ x, const u32* __restrict__ tw,
+                   const u32* __restrict__ tw_dit, const u32* __restrict__ scale, int n,
+                   int log_t) {
+  __shared__ u32 sx[kW * kTile];
+  const int t = 1 << log_t;
+  const int q = threadIdx.x;
+  const int slots = t < kPer ? t : kPer;
+  const int top = log_t > kPerLog ? log_t - kPerLog : 0;
+  const int per_vec = n >> log_t;
+  const int v = blockIdx.x / per_vec;
+  const size_t base = static_cast<size_t>(blockIdx.x - v * per_vec) << log_t;
+  u32* xv = x + static_cast<size_t>(v) * kW * n;
+  Fr r[kPer] = {};
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    if (m < slots) r[m] = load(xv, n, base + elem(q, top, m));
+  }
+  int s = top;
+  if (kForm != kFormDit) {
+    for (int hi = log_t - 1; hi >= 0; hi -= kPerLog) {
+      const int lo = hi > kPerLog - 1 ? hi - (kPerLog - 1) : 0;
+      if (lo != s) {
+        exchange(r, sx, q, s, lo, slots);
+        s = lo;
+      }
+      phase<true>(r, q, s, lo, hi, tw, n);
+    }
+    if (kForm == kFormDif && s != top) {  // the scale's and the store's order
+      exchange(r, sx, q, s, top, slots);
+      s = top;
+    }
+    if (scale) {
+#pragma unroll
+      for (int m = 0; m < kPer; ++m) {
+        if (m < slots) mont(r[m], r[m], load(scale, n, base + elem(q, s, m)));
+      }
+    }
+  }
+  if (kForm != kFormDif) {
+    const u32* twd = kForm == kFormDit ? tw : tw_dit;
+    for (int lo = 0; lo < log_t; lo += kPerLog) {
+      const int hi = lo + kPerLog - 1 < log_t ? lo + kPerLog - 1 : log_t - 1;
+      const int set = lo < top ? lo : top;
+      if (set != s) {
+        exchange(r, sx, q, s, set, slots);
+        s = set;
+      }
+      phase<false>(r, q, s, lo, hi, twd, n);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    if (m < slots) store(xv, n, base + elem(q, s, m), r[m]);
   }
 }
 
@@ -382,33 +565,41 @@ int fr_from_mont_launch(const u32* x, void* rows, int n, int log_n, void* stream
 }
 
 // row_ptr (nrows + 1,), cols and vals (8, nnz) of a row-sorted CSR matrix;
-// z (8, nz); out (8, n_out), every word written; 2^lanes_log lanes a row
+// z (8, nz); out (8, n_out), every word written; order (n_out,) a
+// permutation of the rows of out, its first n_long the rows one CTA each
 int fr_spmv_launch(const int* row_ptr, const int* cols, const u32* vals, int nnz, const u32* z,
-                   int nz, u32* out, int n_out, int nrows, int ncopy, int lanes_log,
-                   void* stream) {
+                   int nz, u32* out, int n_out, int nrows, int ncopy, const int* order,
+                   int n_long, void* stream) {
   if (nnz < 0 || nz < 1 || nrows < 0 || n_out < nrows || ncopy < 0 || ncopy > nz ||
-      nrows + ncopy > n_out || lanes_log < 0 || lanes_log > 5)
+      nrows + ncopy > n_out || n_long < 0 || n_long > nrows)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long threads = static_cast<long>(n_out) << lanes_log;
-  fr_spmv_kernel<<<blocks(threads), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      row_ptr, cols, vals, nnz, z, nz, out, n_out, nrows, ncopy, lanes_log);
+  const int grid = (n_out - n_long + kSpmvThreads - 1) / kSpmvThreads + n_long;
+  if (grid == 0) return static_cast<int>(cudaSuccess);
+  fr_spmv_kernel<<<grid, kSpmvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      row_ptr, cols, vals, nnz, z, nz, out, n_out, nrows, ncopy, order, n_long);
   return static_cast<int>(cudaGetLastError());
 }
 
-// x (8, n) in place, n = 2^log_n >= 2; the stages of span <= 2^log_t, log_t
-// = min(log_n, 10); tw (8, n) the stage twiddles; scale (8, n) or null
-// (DIF only)
-int fr_ntt_tile_launch(u32* x, const u32* tw, const u32* scale, int n, int log_t, int dif,
-                       void* stream) {
+// x (nvec, 8, n) in place, n = 2^log_n >= 2; the stages of span <= 2^log_t,
+// log_t = min(log_n, 10), of each vector; tw (8, n) the stage twiddles
+// (the DIF ones where dif); scale (8, n) or null (DIF only); tw_dit (8, n)
+// or null: with dif, the DIT stages over it after the scale, in the same
+// pass (the round trip)
+int fr_ntt_tile_launch(u32* x, const u32* tw, const u32* scale, const u32* tw_dit, int n,
+                       int log_t, int dif, int nvec, void* stream) {
   if (n < 2 || (n & (n - 1)) || log_t < 1 || log_t > kTileLog || (1 << log_t) > n ||
-      ((1 << log_t) < n && log_t != kTileLog) || (scale && !dif))
+      ((1 << log_t) < n && log_t != kTileLog) || nvec < 1 ||
+      static_cast<long>(nvec) * (n >> log_t) > 0x7fffffffL || (!dif && (scale || tw_dit)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = n >> log_t;
+  const int tiles = nvec * (n >> log_t);
+  const int threads = log_t > kPerLog ? 1 << (log_t - kPerLog) : 1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dif)
-    fr_ntt_tile_kernel<true><<<grid, (1 << log_t) / 2, 0, s>>>(x, tw, scale, n, log_t);
+  if (!dif)
+    fr_ntt_tile_kernel<kFormDit><<<tiles, threads, 0, s>>>(x, tw, nullptr, nullptr, n, log_t);
+  else if (tw_dit)
+    fr_ntt_tile_kernel<kFormRoundTrip><<<tiles, threads, 0, s>>>(x, tw, tw_dit, scale, n, log_t);
   else
-    fr_ntt_tile_kernel<false><<<grid, (1 << log_t) / 2, 0, s>>>(x, tw, scale, n, log_t);
+    fr_ntt_tile_kernel<kFormDif><<<tiles, threads, 0, s>>>(x, tw, nullptr, scale, n, log_t);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -65,8 +65,8 @@ _ARGTYPES = {
     "bucket_level_launch": [_P] * 21 + [_I] * 3 + [_P],
     "fr_to_mont_launch": [_P, _P, _I, _P],
     "fr_from_mont_launch": [_P, _P, _I, _I, _P],
-    "fr_spmv_launch": [_P, _P, _P, _I, _P, _I, _P] + [_I] * 4 + [_P],
-    "fr_ntt_tile_launch": [_P] * 3 + [_I] * 3 + [_P],
+    "fr_spmv_launch": [_P, _P, _P, _I, _P, _I, _P] + [_I] * 3 + [_P, _I, _P],
+    "fr_ntt_tile_launch": [_P] * 4 + [_I] * 4 + [_P],
     "fr_ntt_stage_launch": [_P, _P] + [_I] * 3 + [_P],
     "fr_quotient_launch": [_P] * 4 + [_I, _P],
     "fr_powers_launch": [_P] * 3 + [_I] * 3 + [_P],

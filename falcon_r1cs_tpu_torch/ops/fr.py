@@ -20,13 +20,18 @@ standard rows (n, 4) int64).  Each wrapper:
 - `to_mont_cuda(rows)` -> planes (`fr_to_mont_kernel`);
 - `from_mont_cuda(x)` -> rows, n = 2^k elements, row bitrev(i) (of k
   bits) taking element i (`fr_from_mont_kernel`);
-- `spmv_cuda(row_ptr, cols, vals, z, n_out, ncopy=0)` -> (8, n_out):
-  out[row] = sum vals z[cols] over a CSR matrix of nrows = len(row_ptr) - 1
-  rows, rows nrows .. nrows + ncopy - 1 z[0 .. ncopy - 1], the rest 0
-  (`fr_spmv_kernel`);
-- `ntt_tile_cuda(x, tw, dif, scale=None)`, in place: the stages of span
-  up to 2^TILE_LOG (DIT: the first; DIF: the last, then x *= scale)
-  (`fr_ntt_tile_kernel`);
+- `spmv_cuda(row_ptr, cols, vals, z, n_out, ncopy=0, bins=, out=None)`
+  -> (8, n_out), into `out` where given (a slice of the caller's buffer):
+  out[row] = sum vals z[cols] over a CSR matrix of nrows = len(row_ptr) -
+  1 rows, rows nrows .. nrows + ncopy - 1 z[0 .. ncopy - 1], the rest 0;
+  `bins` = (order, n_long) from `spmv_order`, once a matrix, which the
+  kernel needs: the long rows one CTA each, the others one thread each,
+  by length from the longest (`fr_spmv_kernel`);
+- `ntt_tile_cuda(x, tw, dif, scale=None, tw_dit=None)`, in place on (8,
+  n) planes or a batch (V, 8, n): the stages of span up to 2^TILE_LOG
+  (DIT: the first; DIF: the last, then x *= scale; with `tw_dit`, a DIF
+  tile, the scale and the DIT tile over tw_dit in one pass: the round
+  trip of `coset_ntt`) (`fr_ntt_tile_kernel`);
 - `ntt_stage_cuda(x, tw, lh, dif)`, in place: the stage of span 2^(lh + 1)
   (`fr_ntt_stage_kernel`);
 - `quotient_cuda(a, b, c, zinv)`, in place: a = (a b - c) zinv
@@ -38,7 +43,9 @@ standard rows (n, 4) int64).  Each wrapper:
 two NTT wrappers: DIF, natural order in, bit-reversed out, with the
 twiddles of w^-1 an inverse transform; DIT, bit-reversed in, natural out.
 `tw` is a stage table (`powers_cuda(..., MODE_STAGE)`): tw[h + j] = w^(j
-n / 2h).
+n / 2h).  `coset_ntt(x, tw_inv, tw, scale)` takes each vector of a batch
+(V, 8, n) through the inverse transform, the scale and the forward one,
+the tile stages of all three steps and all V vectors in one launch.
 
 Each wrapper takes its plain version for CPU tensors, launches its kernel
 through `_build.launch` for CUDA tensors and raises for anything else;
@@ -59,6 +66,8 @@ from . import _build
 R = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 WORDS = 8
 TILE_LOG = 10       # a tile of fr_ntt_tile_kernel: 2^10 elements, 32 KB
+TILE_PER = 4        # elements a thread of the tile kernel holds
+SPMV_THREADS = 256  # threads a CTA of fr_spmv_kernel
 MAX_LOG = 32        # columns of the squares table of powers_cuda
 MODE_BITREV, MODE_STAGE = 0, 1
 R_MONT = (1 << 256) % R
@@ -217,9 +226,12 @@ def from_mont(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def spmv(row_ptr, cols, vals, z, n_out: int, ncopy: int = 0) -> torch.Tensor:
+def spmv(row_ptr, cols, vals, z, n_out: int, ncopy: int = 0, bins=None,
+         out=None) -> torch.Tensor:
     """out[row] = sum_k vals[k] z[cols[k]] (Montgomery), over the CSR rows
-    of row_ptr; rows nrows .. nrows + ncopy - 1 take z[0 .. ncopy - 1]."""
+    of row_ptr; rows nrows .. nrows + ncopy - 1 take z[0 .. ncopy - 1].
+    The kernel's `bins` change only the order of each row's sum, which
+    mod r is exact: they are not read."""
     nrows = row_ptr.shape[0] - 1
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
     row = torch.repeat_interleave(torch.arange(nrows, device=z.device), counts)
@@ -227,9 +239,43 @@ def spmv(row_ptr, cols, vals, z, n_out: int, ncopy: int = 0) -> torch.Tensor:
     acc = torch.zeros((_LIMBS + 1, n_out), dtype=torch.int64, device=z.device)
     acc[:_LIMBS].index_add_(1, row, prod)
     longest = int(counts.max()) if nrows else 0
-    out = _from16(_reduce(_normalise(acc), max(1, longest.bit_length()))[:_LIMBS])
-    out[:, nrows:nrows + ncopy] = z[:, :ncopy]
-    return out
+    got = _from16(_reduce(_normalise(acc), max(1, longest.bit_length()))[:_LIMBS])
+    got[:, nrows:nrows + ncopy] = z[:, :ncopy]
+    return got if out is None else out.copy_(got)
+
+
+# a row at least a warp long may take a CTA of its own (spmv_order)
+LONG_ROW_MIN = 32
+
+
+def long_row_min(lengths: np.ndarray) -> int:
+    """The length from which a row is long: the upper end of the widest
+    gap, by ratio, between two neighbouring distinct row lengths (the
+    first counted from 0) that ends at LONG_ROW_MIN or above; past the
+    longest row (no row long) where none does.  A's rows at 2^18 hold 1,
+    2, 4, 15 or 1,026 to 2,075 entries: 1,026."""
+    ls = np.unique(lengths[lengths > 0])
+    best, cut = 0.0, int(ls[-1]) + 1 if len(ls) else 1
+    for lo, hi in zip(np.concatenate([[0], ls[:-1]]), ls):
+        ratio = hi / lo if lo else np.inf
+        if hi >= LONG_ROW_MIN and ratio > best:
+            best, cut = ratio, int(hi)
+    return cut
+
+
+def spmv_order(row_ptr: np.ndarray, n_out: int) -> tuple[np.ndarray, int]:
+    """The bins of `spmv_cuda` for a CSR matrix (row_ptr on the host) into
+    n_out rows: (order (n_out,) int32, n_long).  order holds the long rows
+    (`long_row_min`) in row order, then every other row of out, those past
+    the matrix as empty, by length from the longest and in row order
+    within a length, so the kernel's warps of one thread a row each run
+    rows of one length, and the longest of them start first."""
+    lengths = np.zeros(n_out, dtype=np.int64)
+    lengths[:len(row_ptr) - 1] = np.diff(row_ptr)
+    long = lengths >= long_row_min(lengths)
+    short = np.flatnonzero(~long)
+    short = short[np.argsort(-lengths[short], kind="stable")]
+    return np.concatenate([np.flatnonzero(long), short]).astype(np.int32), int(long.sum())
 
 
 def _stage(x: torch.Tensor, tw: torch.Tensor, lh: int, dif: bool) -> None:
@@ -247,13 +293,22 @@ def _stage(x: torch.Tensor, tw: torch.Tensor, lh: int, dif: bool) -> None:
     blocks[:, :, 1] = _from16(v)
 
 
-def ntt_tile(x, tw, dif: bool, scale=None):
-    """The stages of span up to 2^min(log2 n, TILE_LOG), in place."""
+def ntt_tile(x, tw, dif: bool, scale=None, tw_dit=None):
+    """The stages of span up to 2^min(log2 n, TILE_LOG), in place, of (8,
+    n) planes or of each vector of (V, 8, n); with tw_dit, after the DIF
+    stages and the scale, the DIT stages over tw_dit."""
+    if x.dim() == 3:
+        for v in x:
+            ntt_tile(v, tw, dif, scale, tw_dit)
+        return x
     log_t = min(x.shape[1].bit_length() - 1, TILE_LOG)
     for lh in (reversed(range(log_t)) if dif else range(log_t)):
         _stage(x, tw, lh, dif)
     if scale is not None:
         x.copy_(mul_plain(x, scale))
+    if tw_dit is not None:
+        for lh in range(log_t):
+            _stage(x, tw_dit, lh, False)
     return x
 
 
@@ -356,14 +411,7 @@ def from_mont_cuda(x):
     return rows
 
 
-def spmv_lanes(nnz: int, nrows: int) -> int:
-    """log2 of the lanes a row: the mean row length rounded up to a power
-    of two, at most a warp."""
-    mean = nnz / max(nrows, 1)
-    return min(5, max(0, int(np.ceil(np.log2(mean))) if mean > 0 else 0))
-
-
-def spmv_cuda(row_ptr, cols, vals, z, n_out: int, ncopy: int = 0):
+def spmv_cuda(row_ptr, cols, vals, z, n_out: int, ncopy: int = 0, bins=None, out=None):
     name = "spmv_cuda"
     if row_ptr.dtype != torch.int32 or cols.dtype != torch.int32 or row_ptr.dim() != 1 or \
             cols.dim() != 1:
@@ -373,34 +421,52 @@ def spmv_cuda(row_ptr, cols, vals, z, n_out: int, ncopy: int = 0):
     nrows, nnz, nz = row_ptr.shape[0] - 1, cols.shape[0], z.shape[1]
     if nrows < 0 or n_out < nrows or not 0 <= ncopy <= nz or nrows + ncopy > n_out:
         raise ValueError(f"{name}: {nrows} rows, {ncopy} copied of {nz}, into {n_out}")
-    if not (row_ptr.is_contiguous() and cols.is_contiguous()):
+    if bins is None:
+        raise ValueError(f"{name}: the kernel takes its rows from bins (spmv_order)")
+    order, n_long = bins
+    if order.dtype != torch.int32 or tuple(order.shape) != (n_out,) or not 0 <= n_long <= nrows:
+        raise ValueError(f"{name}: want bins of an int32 order of the {n_out} rows and "
+                         f"0 <= n_long <= {nrows}, got {order.dtype} {tuple(order.shape)}, "
+                         f"{n_long}")
+    if out is not None:
+        _planes(name, out, n_out)
+    if not (row_ptr.is_contiguous() and cols.is_contiguous() and order.is_contiguous()):
         raise ValueError(f"{name}: inputs must be contiguous")
-    dev = _device(name, row_ptr, cols, vals, z)
+    dev = _device(name, row_ptr, cols, vals, order, z, out)
     if dev == "cpu":
-        return spmv_cuda.plain(row_ptr, cols, vals, z, n_out, ncopy)
-    out = torch.empty((WORDS, n_out), dtype=torch.int32, device=dev)
+        return spmv_cuda.plain(row_ptr, cols, vals, z, n_out, ncopy, bins, out)
+    if out is None:
+        out = torch.empty((WORDS, n_out), dtype=torch.int32, device=dev)
     _build.launch("fr_spmv_launch", dev, row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                  nnz, z.data_ptr(), nz, out.data_ptr(), n_out, nrows, ncopy,
-                  spmv_lanes(nnz, nrows))
+                  nnz, z.data_ptr(), nz, out.data_ptr(), n_out, nrows, ncopy, order.data_ptr(),
+                  n_long)
     spmv_cuda.launches += 1
     return out
 
 
-def ntt_tile_cuda(x, tw, dif: bool, scale=None):
+def ntt_tile_cuda(x, tw, dif: bool, scale=None, tw_dit=None):
     name = "ntt_tile_cuda"
-    _planes(name, x)
-    n = x.shape[1]
+    if x.dim() == 3:
+        if x.dtype != torch.int32 or x.shape[0] < 1 or x.shape[1] != WORDS:
+            raise ValueError(f"{name}: want a batch (V >= 1, {WORDS}, n) of int32 planes, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: planes must be contiguous")
+    else:
+        _planes(name, x)
+    n = x.shape[-1]
     log_n = _log2(name, n)
-    _planes(name, tw, n)
-    if scale is not None:
-        _planes(name, scale, n)
-        if not dif:
-            raise ValueError(f"{name}: the scale is a DIF transform's epilogue")
-    dev = _device(name, x, tw, scale)
+    for t in (tw, scale, tw_dit):
+        if t is not None:
+            _planes(name, t, n)
+    if not dif and (scale is not None or tw_dit is not None):
+        raise ValueError(f"{name}: the scale and the DIT table follow a DIF tile")
+    dev = _device(name, x, tw, scale, tw_dit)
     if dev == "cpu":
-        return ntt_tile_cuda.plain(x, tw, dif, scale)
-    _build.launch("fr_ntt_tile_launch", dev, x.data_ptr(), tw.data_ptr(), _ptr(scale), n,
-                  min(log_n, TILE_LOG), int(dif))
+        return ntt_tile_cuda.plain(x, tw, dif, scale, tw_dit)
+    _build.launch("fr_ntt_tile_launch", dev, x.data_ptr(), tw.data_ptr(), _ptr(scale),
+                  _ptr(tw_dit), n, min(log_n, TILE_LOG), int(dif),
+                  x.shape[0] if x.dim() == 3 else 1)
     ntt_tile_cuda.launches += 1
     return x
 
@@ -434,6 +500,24 @@ def ntt(x, tw, dif: bool, scale=None):
     ntt_tile_cuda(x, tw, False)
     for lh in wide:
         ntt_stage_cuda(x, tw, lh, False)
+    return x
+
+
+def coset_ntt(x, tw_inv, tw, scale):
+    """Each vector of x (V, 8, n) in place: the inverse transform (DIF over
+    tw_inv, natural -> bit-reversed), the product by scale, the forward
+    transform (DIT over tw, bit-reversed -> natural).  The wide stages run
+    a launch a vector and a stage; the tile stages of both transforms and
+    the scale run in one launch for all V vectors."""
+    log_n = _log2("coset_ntt", x.shape[-1])
+    wide = range(TILE_LOG, log_n)
+    for lh in reversed(wide):
+        for v in x:
+            ntt_stage_cuda(v, tw_inv, lh, True)
+    ntt_tile_cuda(x, tw_inv, True, scale, tw)
+    for lh in wide:
+        for v in x:
+            ntt_stage_cuda(v, tw, lh, False)
     return x
 
 

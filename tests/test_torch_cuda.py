@@ -785,26 +785,70 @@ def test_fr_kernels_match_plain(cuda):
 @pytest.mark.parametrize("mean", [8.6, 1.33, 0.43])
 def test_fr_spmv_kernel_matches_plain(cuda, mean):
     """The sparse product at the mean row lengths of A, B and C of a
-    Falcon-512 proof (16, 2 and 1 lanes a row), one row of 1,050 entries,
-    empty rows, and instance rows copied from z."""
+    Falcon-512 proof, one row of 1,050 entries and one of 2,075 (the
+    longest of a Falcon-1024 proof's A), empty rows, and instance rows
+    copied from z; its rows binned by `spmv_order` (the two long rows one
+    CTA each where the widest gap in the lengths puts them), into a new
+    tensor and into a slice of a caller's buffer."""
     rng = np.random.default_rng(int(mean * 100))
     nrows, nz, n_out = 20000, 30000, 1 << 15
     lengths = rng.poisson(mean, nrows)
-    lengths[7], lengths[8] = 1050, 0
+    lengths[7], lengths[8], lengths[9] = 1050, 0, 2075
     row_ptr = np.zeros(nrows + 1, dtype=np.int32)
     np.cumsum(lengths, out=row_ptr[1:])
     cols = rng.integers(0, nz, row_ptr[-1]).astype(np.int32)
+    order, n_long = fr.spmv_order(row_ptr, n_out)
+    assert n_long >= 2 and {7, 9} <= set(order[:n_long].tolist())
     args = (torch.from_numpy(row_ptr).to(cuda), torch.from_numpy(cols).to(cuda),
             _fr_planes(len(cols), 80, cuda), _fr_planes(nz, 81, cuda), n_out, 1025)
-    assert torch.equal(fr.spmv_cuda(*args), fr.spmv_cuda.plain(*args))
+    bins = (torch.from_numpy(order).to(cuda), n_long)
+    want = fr.spmv_cuda.plain(*args)
+    assert torch.equal(fr.spmv_cuda(*args, bins=bins), want)
+    buf = torch.full((3, 8, n_out), -1, dtype=torch.int32, device=cuda)
+    assert fr.spmv_cuda(*args, bins=bins, out=buf[1]).data_ptr() == buf[1].data_ptr()
+    assert torch.equal(buf[1], want) and bool((buf[0] == -1).all()) and bool((buf[2] == -1).all())
+
+
+@pytest.mark.parametrize("nvec", [1, 3])
+@pytest.mark.parametrize("log_n", [11, FR_LOG])
+def test_fr_tile_forms_match_plain(cuda, log_n, nvec):
+    """The tile kernel in its three forms, DIF with and without the scale,
+    DIT, and the round trip (DIF over w^-1, the scale, DIT over w), over a
+    batch of nvec vectors (one: the (8, n) form too), against the plain
+    versions word for word; fr.coset_ntt over the batch against each
+    vector's inverse and forward transform (fr.ntt) and, with the scale
+    1 / n, giving x back."""
+    n = 1 << log_n
+    x = torch.stack([_fr_planes(n, 300 + v, cuda) for v in range(nvec)])
+    one = fr.planes_of([1], cuda)
+    omega = pow(5, (fr.R - 1) >> log_n, fr.R)
+    tw = fr.powers_cuda(fr.squares_of(omega, cuda), one, log_n, fr.MODE_STAGE)
+    tw_inv = fr.powers_cuda(fr.squares_of(pow(omega, -1, fr.R), cuda), one, log_n,
+                            fr.MODE_STAGE)
+    scale = _fr_planes(n, 310, cuda)
+    forms = [(tw_inv, True, None, None), (tw_inv, True, scale, None), (tw, False, None, None),
+             (tw_inv, True, scale, tw)]
+    for table, dif, sc, tw_dit in forms:
+        got = fr.ntt_tile_cuda(x.clone(), table, dif, sc, tw_dit)
+        assert torch.equal(got, fr.ntt_tile_cuda.plain(x.clone(), table, dif, sc, tw_dit)), \
+            (dif, sc is not None, tw_dit is not None)
+        if nvec == 1:
+            got1 = fr.ntt_tile_cuda(x[0].clone(), table, dif, sc, tw_dit)
+            assert torch.equal(got1, got[0])
+    got = fr.coset_ntt(x.clone(), tw_inv, tw, scale)
+    for v, g in zip(x, got):  # the chain before the round trip: two transforms a vector
+        assert torch.equal(fr.ntt(fr.ntt(v.clone(), tw_inv, True, scale), tw, False), g)
+    ninv = fr.powers_cuda(fr.squares_of(1, cuda), fr.planes_of([pow(n, -1, fr.R)], cuda),
+                          log_n, fr.MODE_BITREV)
+    assert torch.equal(fr.coset_ntt(x.clone(), tw_inv, tw, ninv), x)
 
 
 def test_witness_map_on_card_matches_native(cuda):
     """witness_map_gpu on the Falcon-512 verify-with-NTT circuit (domain
     2^17, a satisfying assignment and one with a wire bumped) equals the
     native C limb for limb, top coefficient included; a warm call launches
-    1 + 3 + 7 x 8 + 1 + 1 kernels; the prove's h goes to the recode as it
-    is."""
+    8 + 7 x 7 = 57 kernels (a, b and c through one round-trip tile); the
+    prove's h goes to the recode as it is."""
     from falcon_r1cs_tpu_torch import FALCON_512
     from falcon_r1cs_tpu_torch.r1cs.coo import compile_circuit
     from falcon_r1cs_tpu_torch.snark import gpu_qap
@@ -824,9 +868,10 @@ def test_witness_map_on_card_matches_native(cuda):
     before = {k: w.launches for k, w in fr.KERNELS.items()}
     gpu_qap.witness_map_gpu(compiled, z, cuda)
     got = {k: w.launches - before[k] for k, w in fr.KERNELS.items()}
-    assert got == {"fr_to_mont_kernel": 1, "fr_spmv_kernel": 3, "fr_ntt_tile_kernel": 7,
+    assert got == {"fr_to_mont_kernel": 1, "fr_spmv_kernel": 3, "fr_ntt_tile_kernel": 2,
                    "fr_ntt_stage_kernel": 49, "fr_quotient_kernel": 1,
                    "fr_from_mont_kernel": 1, "fr_powers_kernel": 0}, got
+    assert sum(got.values()) == 57
 
 
 def test_fr_wrappers_reject_bad_inputs(cuda):

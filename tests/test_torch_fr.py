@@ -1,14 +1,17 @@
 """The Fr arithmetic of the witness map's kernels, on the CPU: the plain
 torch versions of `ops/fr.py` against Python ints, and a Python-int
 transcription of `csrc/fr_mont.cu` (its CIOS carry chains, its add and
-subtract, its entry reduction, its exit placement, its power exponents
-and its transform's index maps) against both.
+subtract, its entry reduction, its exit placement, its power exponents,
+its transform tile's register phases, exchanges and twiddle indexing,
+and its sparse product's row bins and summation order) against both.
 
 The CUDA kernels cannot run here, so their word arithmetic and schedule
-are transcribed word for word, with 32-bit wrapping made explicit; the
-word constants and n0' are parsed from the CUDA source text, so a typo
-there fails here before any run on a card.  Everything is integer
-arithmetic: tolerance 0.  No JAX is imported.
+are transcribed, with 32-bit wrapping made explicit; the word constants,
+n0' and the exchange swizzle are parsed from the CUDA source text, so a
+typo there fails here before any run on a card.  The schedules run on
+the integer values of the same Montgomery forms (each product a b
+2^-256 mod r, which the word transcription is held to).  Everything is
+integer arithmetic: tolerance 0.  No JAX is imported.
 """
 
 import re
@@ -43,17 +46,23 @@ def _int(w):
 RW, R2W = _table("c_rw"), _table("c_r2w")
 RINV = int(re.search(r"constexpr u32 kRInv = 0x([0-9a-f]+)u;", SRC).group(1), 16)
 TILE_LOG = int(re.search(r"constexpr int kTileLog = (\d+);", SRC).group(1))
+PER_LOG = int(re.search(r"constexpr int kPerLog = (\d+);", SRC).group(1))
+PER = 1 << PER_LOG
+SPMV_THREADS = int(re.search(r"constexpr int kSpmvThreads = (\d+);", SRC).group(1))
+# the exchange swizzle of csrc/fr_mont.cu swz(): index bit -> the bank bits it flips
+SWZ = {int(b): int(f, 16) for b, f in re.findall(r"\(\(e >> (\d)\) & 1\) \* 0x([0-9a-f]+)", SRC)}
 VALUES = [0, 1, 2, R - 1, R - 2, (R - 1) // 2, 1 << 254] + [
     int.from_bytes(np.random.default_rng(s).bytes(32), "little") % R for s in range(40)]
 
 
 def test_source_constants():
     """r's words, R'^2 mod r and n0' in csrc/fr_mont.cu equal those derived
-    from r; the tile of the .cu is the wrapper's; 2r fits 256 bits and 4r
+    from r; the tile, its elements a thread and the sparse product's CTA
+    of the .cu are the wrapper's; 2r fits 256 bits and 4r
     does not (so nothing in the kernels is lazy)."""
     assert RW == _words(R) and R2W == _words(pow(2, 512, R))
     assert RINV == (-pow(R, -1, 1 << 32)) % (1 << 32) == M32
-    assert TILE_LOG == fr.TILE_LOG
+    assert (TILE_LOG, PER, SPMV_THREADS) == (fr.TILE_LOG, fr.TILE_PER, fr.SPMV_THREADS)
     assert 2 * R < 1 << 256 < 4 * R and 1 << 256 < 3 * R
     assert fr.R_MONT == (1 << 256) % R
 
@@ -153,49 +162,150 @@ def exponent(i, log_n, mode):
     return (i - (1 << lh)) << (log_n - 1 - lh)
 
 
+# -- the schedules, on the integer values of Montgomery forms -----------------
+
+
+def imont(a, b):
+    return a * b * RINV_MONT % R
+
+
 def butterfly(u, v, w, dif):
     if dif:
-        return add(u, v), mont(sub(u, v), w)
-    t = mont(v, w)
-    return add(u, t), sub(u, t)
+        return (u + v) % R, imont((u - v) % R, w)
+    t = imont(v, w)
+    return (u + t) % R, (u - t) % R
+
+
+def swz(e):
+    """csrc/fr_mont.cu swz(): the exchange slot of tile element e."""
+    for bit, flips in SWZ.items():
+        e ^= ((e >> bit) & 1) * flips
+    return e
+
+
+def elem(q, s, m):
+    """The tile element of slot m of thread q on the bit set s."""
+    return (q & ((1 << s) - 1)) | (m << s) | ((q >> s) << (s + PER_LOG))
+
+
+def dif_phases(log_t):
+    """(s, lo, hi) of the DIF phases, from the widest stage."""
+    hi = log_t - 1
+    while hi >= 0:
+        yield max(0, hi - PER_LOG + 1), max(0, hi - PER_LOG + 1), hi
+        hi -= PER_LOG
+
+
+def dit_phases(log_t):
+    """(s, lo, hi) of the DIT phases, from the narrowest stage."""
+    top = max(0, log_t - PER_LOG)
+    for lo in range(0, log_t, PER_LOG):
+        yield min(lo, top), lo, min(lo + PER_LOG - 1, log_t - 1)
+
+
+def tile_kernel(xs, tw, dif, scale=None, tw_dit=None, stats=None):
+    """fr_ntt_tile_kernel over the vectors xs (lists of n values, in
+    place): every CTA's tile, its t / PER threads in lockstep, each
+    holding its slots in registers; phases as the kernel runs them, each
+    exchange through the swizzled planes (a dict, every slot written
+    once); twiddles from the prefix tw[0 .. t).  `stats` counts the
+    exchanges of a tile."""
+    n = len(xs[0])
+    log_t = min(n.bit_length() - 1, TILE_LOG)
+    t = 1 << log_t
+    threads, slots, top = max(1, t // PER), min(PER, t), max(0, log_t - PER_LOG)
+    form = "dit" if not dif else ("round trip" if tw_dit is not None else "dif")
+    for x in xs:
+        for base in range(0, n, t):
+            r = [[x[base + elem(q, top, m)] for m in range(slots)] for q in range(threads)]
+            sets = [top]
+
+            def exchange(to):
+                sx = {}
+                for q in range(threads):
+                    for m in range(slots):
+                        e = swz(elem(q, sets[-1], m))
+                        assert e not in sx and 0 <= e < t
+                        sx[e] = r[q][m]
+                for q in range(threads):
+                    r[q] = [sx[swz(elem(q, to, m))] for m in range(slots)]
+                sets.append(to)
+
+            def phase(phase_dif, s, lo, hi, table):
+                if s != sets[-1]:
+                    exchange(s)
+                for c in range(PER_LOG):
+                    b = PER_LOG - 1 - c if phase_dif else c
+                    lh = s + b
+                    if not lo <= lh <= hi:
+                        continue
+                    for q in range(threads):
+                        low = q & ((1 << s) - 1)
+                        for pair in range(PER // 2):
+                            m = ((pair >> b) << (b + 1)) | (pair & ((1 << b) - 1))
+                            if m >= slots:
+                                continue
+                            w = table[(1 << lh) + (low | ((m & ((1 << b) - 1)) << s))]
+                            r[q][m], r[q][m + (1 << b)] = butterfly(
+                                r[q][m], r[q][m + (1 << b)], w, phase_dif)
+
+            if form != "dit":
+                for s, lo, hi in dif_phases(log_t):
+                    phase(True, s, lo, hi, tw[:t])
+                if form == "dif" and sets[-1] != top:
+                    exchange(top)
+                if scale is not None:
+                    for q in range(threads):
+                        r[q] = [imont(v, scale[base + elem(q, sets[-1], m)])
+                                for m, v in enumerate(r[q])]
+            if form != "dif":
+                for s, lo, hi in dit_phases(log_t):
+                    phase(False, s, lo, hi, (tw if form == "dit" else tw_dit)[:t])
+            assert sets[-1] == top
+            for q in range(threads):
+                for m in range(slots):
+                    x[base + elem(q, top, m)] = r[q][m]
+            if stats is not None:
+                stats[form] = len(sets) - 1
+    return xs
+
+
+def stage_kernel(x, tw, lh, dif):
+    """fr_ntt_stage_kernel: thread b the butterfly of index map
+    ((b >> lh) << (lh + 1)) | j, j = b mod h."""
+    h = 1 << lh
+    for b in range(len(x) // 2):
+        j = b & (h - 1)
+        i = ((b >> lh) << (lh + 1)) | j
+        x[i], x[i + h] = butterfly(x[i], x[i + h], tw[h + j], dif)
 
 
 def kernel_ntt(x, tw, dif, scale=None):
-    """The transform as fr.ntt launches it, each kernel transcribed: the
-    tile kernel's CTAs (t / 2 threads, thread b one butterfly a stage) and
-    the stage kernel's threads, with their index maps; x, tw, scale lists
-    of 8-word values."""
-    n = len(x)
-    log_n = n.bit_length() - 1
-    log_t = min(log_n, TILE_LOG)
-    x = list(x)
-
-    def stage(lh, base, count):
-        h = 1 << lh
-        for b in range(count):
-            j = b & (h - 1)
-            i = base + (((b >> lh) << (lh + 1)) | j)
-            x[i], x[i + h] = butterfly(x[i], x[i + h], tw[h + j], dif)
-
-    def tile():
-        t = 1 << log_t
-        for base in range(0, n, t):
-            for st in range(log_t):
-                stage(log_t - 1 - st if dif else st, base, t // 2)
-            if scale is not None:
-                for e in range(base, base + t):
-                    x[e] = mont(x[e], scale[e])
-
-    wide = range(TILE_LOG, log_n)
+    """The transform as fr.ntt launches it, on one vector (in place)."""
+    wide = range(TILE_LOG, len(x).bit_length() - 1)
     if dif:
         for lh in reversed(wide):
-            stage(lh, 0, n // 2)
-        tile()
+            stage_kernel(x, tw, lh, True)
+        tile_kernel([x], tw, True, scale)
     else:
-        tile()
+        tile_kernel([x], tw, False)
         for lh in wide:
-            stage(lh, 0, n // 2)
+            stage_kernel(x, tw, lh, False)
     return x
+
+
+def kernel_coset_ntt(xs, tw_inv, tw, scale):
+    """fr.coset_ntt as it launches: the wide DIF stages of each vector, one
+    round-trip tile over all of them, the wide DIT stages."""
+    wide = range(TILE_LOG, len(xs[0]).bit_length() - 1)
+    for lh in reversed(wide):
+        for x in xs:
+            stage_kernel(x, tw_inv, lh, True)
+    tile_kernel(xs, tw_inv, True, scale, tw)
+    for lh in wide:
+        for x in xs:
+            stage_kernel(x, tw, lh, False)
+    return xs
 
 
 def _mont_words(v):
@@ -241,31 +351,225 @@ def test_power_exponents(mode, log_n):
                 assert want[h:2 * h] == [j * n // (2 * h) for j in range(h)]
 
 
+def _mont_int(v):
+    return v * (1 << 256) % R
+
+
+def _ival(m):
+    return m * RINV_MONT % R
+
+
+def _stage_table(w, log_n):
+    return [_mont_int(pow(w, exponent(i, log_n, fr.MODE_STAGE), R)) for i in range(1 << log_n)]
+
+
+def _randoms(n, seed):
+    rng = np.random.default_rng(seed)
+    return [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+
+
 @pytest.mark.parametrize("log_n", [3, 11])
 def test_transcribed_transform_is_the_dft(log_n):
-    """The kernels' schedule (tile stages, then or after the wide stages at
-    2^11) over the stage twiddles: DIF over w^-1 with the scale n^-1, then
-    DIT over w, gives x back; DIT of the bit-reversed x is the port's
-    snark/fr.py fft of x; and the plain `ntt` computes the same words."""
+    """The kernels' schedule (the tile's register phases and exchanges,
+    then or after the wide stages at 2^11) over the stage twiddles: DIF
+    over w^-1 with the scale n^-1, then DIT over w, gives x back; DIT of
+    the bit-reversed x is the port's snark/fr.py fft of x; and the plain
+    `ntt` computes the same values."""
     n = 1 << log_n
     w = root_of_unity(log_n)
-    rng = np.random.default_rng(log_n)
-    xs = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
-    tw = [_mont_words(pow(w, exponent(i, log_n, fr.MODE_STAGE), R)) for i in range(n)]
-    tw_inv = [_mont_words(pow(w, -exponent(i, log_n, fr.MODE_STAGE), R)) for i in range(n)]
-    ninv = [_mont_words(pow(n, -1, R))] * n
-    x = [_mont_words(v) for v in xs]
-    coeffs = kernel_ntt(x, tw_inv, True, ninv)
-    assert [_value(v) for v in kernel_ntt(coeffs, tw, False)] == xs
-    brev = [x[exit_row(i, log_n)] for i in range(n)]
-    evals = kernel_ntt(brev, tw, False)
-    assert [_value(v) for v in evals] == fft(xs, w)
+    xs = _randoms(n, log_n)
+    tw, tw_inv = _stage_table(w, log_n), _stage_table(pow(w, -1, R), log_n)
+    x = [_mont_int(v) for v in xs]
+    coeffs = kernel_ntt(list(x), tw_inv, True, [_mont_int(pow(n, -1, R))] * n)
+    assert [_ival(v) for v in kernel_ntt(coeffs, tw, False)] == xs
+    evals = kernel_ntt([x[exit_row(i, log_n)] for i in range(n)], tw, False)
+    assert [_ival(v) for v in evals] == fft(xs, w)
 
     planes = fr.planes_of(xs, "cpu")
     tw_p = fr.planes_of([pow(w, exponent(i, log_n, fr.MODE_STAGE), R) for i in range(n)], "cpu")
     got = fr.ntt(planes[:, torch.from_numpy(np.array(
         [exit_row(i, log_n) for i in range(n)]))].contiguous(), tw_p, False)
     assert fr.values_of(got) == fft(xs, w)
+
+
+@pytest.mark.parametrize("nvec", [1, 3])
+@pytest.mark.parametrize("log_n", [3, 11])
+def test_transcribed_round_trip_tile(log_n, nvec):
+    """fr.coset_ntt's schedule, the round-trip tile over nvec vectors
+    between the wide stages: each vector of evaluations on the domain
+    comes out as the evaluations on the coset 5 w^i (DIF over w^-1, the
+    scale n^-1 5^bitrev(i), DIT over w), against the port's snark/fr.py
+    fft; the plain coset_ntt and the DIF form with the inverse scale (h's
+    last tile) agree; a tile of 2^10 exchanges 8 times in the round trip,
+    5 in a DIF or DIT form alone (2 stages a phase)."""
+    n, g = 1 << log_n, 5
+    w, winv, ninv = root_of_unity(log_n), pow(root_of_unity(log_n), -1, R), pow(n, -1, R)
+    tw, tw_inv = _stage_table(w, log_n), _stage_table(winv, log_n)
+    scale = [ninv * pow(g, exit_row(i, log_n), R) % R for i in range(n)]
+    vecs = [_randoms(n, 100 + log_n + v) for v in range(nvec)]
+    wants = []
+    for vec in vecs:
+        coeffs = [c * ninv % R for c in fft(vec, winv)]
+        wants.append(fft([c * pow(g, i, R) % R for i, c in enumerate(coeffs)], w))
+    stats = {}
+    xs = [[_mont_int(v) for v in vec] for vec in vecs]
+    tile_kernel(xs, tw_inv, True, [_mont_int(v) for v in scale], tw, stats)
+    stats_dif, stats_dit = {}, {}
+    tile_kernel([list(xs[0])], tw_inv, True, None, None, stats_dif)
+    tile_kernel([list(xs[0])], tw, False, None, None, stats_dit)
+    if log_n == TILE_LOG + 1:
+        phases = -(-TILE_LOG // PER_LOG)
+        assert (stats["round trip"], stats_dif["dif"], stats_dit["dit"]) == (
+            2 * phases - 2, phases, phases)
+    xs = [[_mont_int(v) for v in vec] for vec in vecs]
+    got = kernel_coset_ntt(xs, tw_inv, tw, [_mont_int(v) for v in scale])
+    assert [[_ival(v) for v in x] for x in got] == wants
+
+    def planes(values):
+        return fr.planes_of(values, "cpu")
+
+    batch = torch.stack([planes(vec) for vec in vecs])
+    tw_values = [pow(w, exponent(i, log_n, fr.MODE_STAGE), R) for i in range(n)]
+    twinv_values = [pow(winv, exponent(i, log_n, fr.MODE_STAGE), R) for i in range(n)]
+    out = fr.coset_ntt(batch, planes(twinv_values), planes(tw_values), planes(scale))
+    assert out is batch and [fr.values_of(x) for x in batch] == wants
+    # h's last inverse transform: DIF over w^-1 with n^-1 5^-bitrev(i)
+    scale_inv = [ninv * pow(g, -exit_row(i, log_n), R) % R for i in range(n)]
+    h = [_mont_int(v) for v in vecs[0]]
+    kernel_ntt(h, tw_inv, True, [_mont_int(v) for v in scale_inv])
+    got_plain = fr.ntt(planes(vecs[0]), planes(twinv_values), True, planes(scale_inv))
+    coeffs = [c * ninv % R for c in fft(vecs[0], winv)]
+    assert [_ival(v) for v in h] == fr.values_of(got_plain) == [
+        coeffs[exit_row(i, log_n)] * pow(g, -exit_row(i, log_n), R) % R for i in range(n)]
+
+
+@pytest.mark.parametrize("log_t", range(1, TILE_LOG + 1))
+def test_tile_phases_and_banks(log_t):
+    """The tile's phases run every stage once, in order, each on a bit set
+    that holds it; the swizzle is a permutation of the tile; on every set a
+    phase uses, each warp's 32 exchange words of a slot lie in 32 banks;
+    and each warp's twiddle reads of a pair hit distinct banks but for
+    threads that read one word (a broadcast)."""
+    t = 1 << log_t
+    threads, slots, top = max(1, t // PER), min(PER, t), max(0, log_t - PER_LOG)
+    dif, dit = list(dif_phases(log_t)), list(dit_phases(log_t))
+    assert [lh for _, lo, hi in dif for lh in range(hi, lo - 1, -1)] == list(range(log_t))[::-1]
+    assert [lh for _, lo, hi in dit for lh in range(lo, hi + 1)] == list(range(log_t))
+    assert dif[0][0] == dit[-1][0] == top and dif[-1][0] == dit[0][0] == 0
+    for s, lo, hi in dif + dit:
+        assert s <= lo <= hi < s + PER_LOG and 0 <= s <= top
+    assert sorted(swz(e) for e in range(t)) == list(range(t))
+    assert sorted(elem(q, s, m) for q in range(threads) for m in range(slots)) == list(range(t))
+    for s in {s for s, _, _ in dif + dit}:
+        for w0 in range(0, threads, 32):
+            lanes = range(w0, min(threads, w0 + 32))
+            for m in range(slots):
+                banks = [swz(elem(q, s, m)) % 32 for q in lanes]
+                assert len(set(banks)) == len(banks), (log_t, s, m)
+        for lo, hi in [(lo, hi) for s2, lo, hi in dif + dit if s2 == s]:
+            for lh in range(lo, hi + 1):
+                b = lh - s
+                for pair in range(PER // 2):
+                    m = ((pair >> b) << (b + 1)) | (pair & ((1 << b) - 1))
+                    for w0 in range(0, threads, 32):
+                        idx = {(1 << lh) + ((q & ((1 << s) - 1)) | ((m & ((1 << b) - 1)) << s))
+                               for q in range(w0, min(threads, w0 + 32))}
+                        assert len({i % 32 for i in idx}) == len(idx)
+
+
+def spmv_kernel(row_ptr, cols, vals, z, n_out, ncopy, order, n_long):
+    """fr_spmv_kernel on integer Montgomery values: a thread each row of
+    order[n_long ..], in k order; a CTA each long row order[b], b <
+    n_long (thread t the products k = begin + t + i SPMV_THREADS, a warp
+    shuffle tree by xor 16 .. 1, warp 0 the warps' sums by xor 4 .. 1).
+    Every row of out is written once."""
+    nrows = len(row_ptr) - 1
+    out = [None] * n_out
+
+    def write(row, v):
+        assert out[row] is None
+        out[row] = v
+
+    for b in range(n_long):
+        row = order[b]
+        begin, end = row_ptr[row], row_ptr[row + 1]
+        acc = [0] * SPMV_THREADS
+        for tid in range(SPMV_THREADS):
+            for k in range(begin + tid, end, SPMV_THREADS):
+                acc[tid] = (acc[tid] + imont(vals[k], z[cols[k]])) % R
+        for off in (16, 8, 4, 2, 1):
+            acc = [(acc[i] + acc[i ^ off]) % R for i in range(SPMV_THREADS)]
+        acc = acc[::32] + [0] * (32 - SPMV_THREADS // 32)
+        for off in (4, 2, 1):
+            acc = [(acc[i] + acc[i ^ off]) % R for i in range(32)]
+        write(row, acc[0])
+    for row in order[n_long:]:
+        acc = 0
+        if row < nrows:
+            for k in range(row_ptr[row], row_ptr[row + 1]):
+                acc = (acc + imont(vals[k], z[cols[k]])) % R
+        elif row - nrows < ncopy:
+            acc = z[row - nrows]
+        write(row, acc)
+    assert None not in out
+    return out
+
+
+def test_transcribed_spmv_bins_and_order():
+    """A matrix with the Falcon-1024 shape of A's rows (four of 1,027
+    entries, two of 1,026, one of 2,075, each a run of consecutive wires;
+    short rows of 1, 2, 4 and 15 random wires; empty rows) and 64 copied
+    instance rows, as a shuffled COO: gpu_qap._csr's bins take the 7 long
+    rows (from 1,026 entries) in row order and every other row of out once,
+    from the longest, in row order within a length; the kernel's sums in
+    its order equal the plain spmv word for word and the Python-int
+    sums."""
+    from falcon_r1cs_tpu_torch.snark import gpu_qap
+
+    rng = np.random.default_rng(2075)
+    nrows, nz, n_out, ncopy = 700, 3000, 1024, 64
+    lengths = rng.choice([0, 1, 2, 4, 15], nrows, p=[0.1, 0.3, 0.4, 0.1, 0.1])
+    long_at = rng.choice(nrows, 7, replace=False)
+    lengths[long_at] = [1027, 1027, 1027, 1027, 1026, 1026, 2075]
+    rows, cols = [], []
+    for r, length in enumerate(lengths):
+        rows += [r] * int(length)
+        if length > 15:
+            start = int(rng.integers(0, nz - length))
+            cols += range(start, start + int(length))
+        else:
+            cols += rng.integers(0, nz, int(length)).tolist()
+    perm = rng.permutation(len(rows))
+    rows, cols = np.array(rows, dtype=np.int32)[perm], np.array(cols, dtype=np.int32)[perm]
+    vals = _randoms(len(rows), 1)
+    val_rows = np.array([[(v >> (64 * k)) & (2**64 - 1) for k in range(4)] for v in vals],
+                        dtype=np.uint64)
+    (row_ptr, cols_t, vals_t), (order, n_long) = gpu_qap._csr(rows, cols, val_rows, nrows,
+                                                              n_out, "cpu")
+    rp, order_l = row_ptr.tolist(), order.tolist()
+    length_of = [rp[r + 1] - rp[r] if r < nrows else 0 for r in range(n_out)]
+    assert fr.long_row_min(np.array(length_of)) == 1026
+    assert sorted(order_l) == list(range(n_out)) and n_long == 7
+    assert order_l[:n_long] == sorted(long_at.tolist())
+    short = [length_of[r] for r in order_l[n_long:]]
+    assert short == sorted(short, reverse=True) and short[0] == 15
+    for length in set(short):  # row order within a length
+        same = [r for r in order_l[n_long:] if length_of[r] == length]
+        assert same == sorted(same)
+    z = _randoms(nz, 2)
+    zm = [_mont_int(v) for v in z]
+    colsl = cols_t.tolist()
+    valsm = [_int(w) for w in vals_t.numpy().view(np.uint32).T.tolist()]
+    got = spmv_kernel(rp, colsl, valsm, zm, n_out, ncopy, order_l, n_long)
+    plain = fr.spmv_cuda(row_ptr, cols_t, vals_t, fr.planes_of(z, "cpu"), n_out, ncopy,
+                         bins=(order, n_long))
+    assert [_int(w) for w in plain.numpy().view(np.uint32).T.tolist()] == got
+    by_row = np.argsort(rows, kind="stable")
+    want = [0] * n_out
+    for r, c, v in zip(rows[by_row], cols[by_row], np.array(vals, dtype=object)[by_row]):
+        want[r] = (want[r] + v * z[c]) % R
+    want[nrows:nrows + ncopy] = z[:ncopy]
+    assert [_ival(v) for v in got] == want
 
 
 # --- the plain versions against Python ints -----------------------------------

@@ -77,6 +77,9 @@ def _wrapper_calls(dev):
     bridge = (half, half, half, torch.zeros((2, m // 2), dtype=torch.bool, device=dev))
     bank = msm_bucket.bucket_bank(2, 3, dev)
     planes, rows, row_ptr, cols, vals, one, squares = _fr_inputs(dev)
+    order = torch.zeros(16, dtype=torch.int32, device=dev)
+    batch = torch.zeros((3, 8, 1 << 11), dtype=torch.int32, device=dev)
+    out = torch.zeros((8, 16), dtype=torch.int32, device=dev)
     return [
         (_build.add_one, "add_one_launch", lambda: _build.add_one(x)),
         (cuda_ntt.ntt_with_hints_cuda, "ntt_hints_launch",
@@ -101,9 +104,14 @@ def _wrapper_calls(dev):
         (fr.to_mont_cuda, "fr_to_mont_launch", lambda: fr.to_mont_cuda(rows)),
         (fr.from_mont_cuda, "fr_from_mont_launch", lambda: fr.from_mont_cuda(planes)),
         (fr.spmv_cuda, "fr_spmv_launch",
-         lambda: fr.spmv_cuda(row_ptr, cols, vals, planes, 16, 2)),
+         lambda: fr.spmv_cuda(row_ptr, cols, vals, planes, 16, 2, bins=(order, 2))),
+        (fr.spmv_cuda, "fr_spmv_launch",
+         lambda: fr.spmv_cuda(row_ptr, cols, vals, planes, 16, 2, bins=(order, 0), out=out)),
         (fr.ntt_tile_cuda, "fr_ntt_tile_launch",
          lambda: fr.ntt_tile_cuda(planes, planes, True, planes)),
+        (fr.ntt_tile_cuda, "fr_ntt_tile_launch",
+         lambda: fr.ntt_tile_cuda(batch, planes, True, planes, planes)),
+        (fr.ntt_tile_cuda, "fr_ntt_tile_launch", lambda: fr.ntt_tile_cuda(batch, planes, False)),
         (fr.ntt_stage_cuda, "fr_ntt_stage_launch",
          lambda: fr.ntt_stage_cuda(planes, planes, 10, False)),
         (fr.quotient_cuda, "fr_quotient_launch",
@@ -130,6 +138,14 @@ def _z(*shape, dtype=torch.int32):
     return torch.zeros(shape, dtype=dtype, device=torch.device("cuda", 0))
 
 
+def _strided(shape, stride):
+    return torch.empty_strided(shape, stride, dtype=torch.int32, device=torch.device("cuda", 0))
+
+
+def _bins(n_out=16, n_long=2, dtype=torch.int32):
+    return _z(n_out, dtype=dtype), n_long
+
+
 # wrong dtypes and shapes, each with the other arguments right (n = 2^11)
 FR_BAD = {
     "to_mont dtype": lambda p, r, rp, c, v, o, sq: fr.to_mont_cuda(_z(2048, 4)),
@@ -138,12 +154,30 @@ FR_BAD = {
                                                                           dtype=torch.int64)),
     "from_mont perm": lambda p, r, rp, c, v, o, sq: fr.from_mont_cuda(_z(8, 1000)),
     "spmv cols dtype": lambda p, r, rp, c, v, o, sq: fr.spmv_cuda(rp, _z(16, dtype=torch.int64),
-                                                                  v, p, 16),
-    "spmv vals shape": lambda p, r, rp, c, v, o, sq: fr.spmv_cuda(rp, c, _z(8, 15), p, 16),
-    "spmv rows": lambda p, r, rp, c, v, o, sq: fr.spmv_cuda(rp, c, v, p, 4),
+                                                                  v, p, 16, bins=_bins()),
+    "spmv vals shape": lambda p, r, rp, c, v, o, sq: fr.spmv_cuda(rp, c, _z(8, 15), p, 16,
+                                                                  bins=_bins()),
+    "spmv rows": lambda p, r, rp, c, v, o, sq: fr.spmv_cuda(rp, c, v, p, 4, bins=_bins(4)),
+    "spmv no bins": lambda p, r, rp, c, v, o, sq: fr.spmv_cuda(rp, c, v, p, 16),
+    "spmv order rows": lambda p, r, rp, c, v, o, sq: fr.spmv_cuda(rp, c, v, p, 16,
+                                                                  bins=_bins(15)),
+    "spmv order dtype": lambda p, r, rp, c, v, o, sq: fr.spmv_cuda(
+        rp, c, v, p, 16, bins=_bins(dtype=torch.int64)),
+    "spmv long rows": lambda p, r, rp, c, v, o, sq: fr.spmv_cuda(rp, c, v, p, 16,
+                                                                 bins=_bins(n_long=9)),
+    "spmv out shape": lambda p, r, rp, c, v, o, sq: fr.spmv_cuda(rp, c, v, p, 16, bins=_bins(),
+                                                                 out=_z(8, 15)),
+    "spmv out strided": lambda p, r, rp, c, v, o, sq: fr.spmv_cuda(
+        rp, c, v, p, 16, bins=_bins(), out=_strided((8, 16), (1, 8))),
     "tile size": lambda p, r, rp, c, v, o, sq: fr.ntt_tile_cuda(_z(8, 1000), _z(8, 1000), True),
     "tile twiddles": lambda p, r, rp, c, v, o, sq: fr.ntt_tile_cuda(p, _z(8, 1024), True),
     "tile scale dit": lambda p, r, rp, c, v, o, sq: fr.ntt_tile_cuda(p, p, False, p),
+    "tile dit after dit": lambda p, r, rp, c, v, o, sq: fr.ntt_tile_cuda(p, p, False, None, p),
+    "tile dit table": lambda p, r, rp, c, v, o, sq: fr.ntt_tile_cuda(p, p, True, p, _z(8, 1024)),
+    "tile empty batch": lambda p, r, rp, c, v, o, sq: fr.ntt_tile_cuda(_z(0, 8, 2048), p, True),
+    "tile batch words": lambda p, r, rp, c, v, o, sq: fr.ntt_tile_cuda(_z(3, 4, 2048), p, True),
+    "tile batch strided": lambda p, r, rp, c, v, o, sq: fr.ntt_tile_cuda(
+        _strided((3, 8, 2048), (8 * 4096, 4096, 1)), p, True),
     "stage span": lambda p, r, rp, c, v, o, sq: fr.ntt_stage_cuda(p, p, 11, True),
     "stage in tile": lambda p, r, rp, c, v, o, sq: fr.ntt_stage_cuda(p, p, 9, True),
     "quotient zinv": lambda p, r, rp, c, v, o, sq: fr.quotient_cuda(p, p, p, p),
@@ -236,6 +270,43 @@ def test_recode_window_count_reaches_the_kernel(mock_library, window, nw):
             with pytest.raises(ValueError, match="windows at w"):
                 msm_recode.signed_digits_cuda(scalars, flags, window, 16, bad)
         assert calls == [] and msm_recode.signed_digits_cuda.launches == before
+
+
+@pytest.mark.parametrize("log_n, nvec", [(11, 1), (11, 3), (17, 3), (3, 3)])
+def test_fr_tile_batch_reaches_the_kernel(mock_library, log_n, nvec):
+    """The tile's wrapper passes n, the tile's log (at most 10), the form
+    and the batch's vector count to the C entry point; the round trip (DIF,
+    scale, DIT) is one call for the whole batch."""
+    calls, _, _ = mock_library
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        dev, n = torch.device("cuda", 0), 1 << log_n
+        x = torch.zeros((nvec, 8, n) if nvec > 1 else (8, n), dtype=torch.int32, device=dev)
+        tw = torch.zeros((8, n), dtype=torch.int32, device=dev)
+        for dif, scale, tw_dit in ((True, tw, tw), (True, None, None), (False, None, None)):
+            del calls[:]
+            assert fr.ntt_tile_cuda(x, tw, dif, scale, tw_dit) is x
+            assert [c[0] for c in calls] == ["fr_ntt_tile_launch"]
+            assert calls[0][1][4:] == (n, min(log_n, 10), int(dif), nvec, STREAM)
+
+
+@pytest.mark.parametrize("n_long", [0, 3])
+def test_fr_spmv_bins_reach_the_kernel(mock_library, n_long):
+    """The sparse product's wrapper passes its rows, the copied rows and
+    the count of long rows to the C entry point, and writes into the
+    caller's buffer where given."""
+    calls, _, _ = mock_library
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        dev = torch.device("cuda", 0)
+        row_ptr = torch.zeros(9, dtype=torch.int32, device=dev)
+        cols = torch.zeros(16, dtype=torch.int32, device=dev)
+        vals = torch.zeros((8, 16), dtype=torch.int32, device=dev)
+        z = torch.zeros((8, 40), dtype=torch.int32, device=dev)
+        order = torch.zeros(32, dtype=torch.int32, device=dev)
+        out = torch.zeros((8, 32), dtype=torch.int32, device=dev)
+        assert fr.spmv_cuda(row_ptr, cols, vals, z, 32, 5, bins=(order, n_long), out=out) is out
+        assert calls[-1][0] == "fr_spmv_launch"
+        args = calls[-1][1]
+        assert (args[3], args[5], args[7:10], args[11:]) == (16, 40, (32, 8, 5), (n_long, STREAM))
 
 
 @pytest.mark.parametrize("passes", [False, True])
