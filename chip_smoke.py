@@ -1558,66 +1558,48 @@ def bucket_emissions(keys):
     return counts
 
 
-def bucket_kernel_vs_plain(dev, launches, build_log):
+def bucket_kernel_vs_plain(dev, launches, build_log, z512):
     """The merge-level kernel against its plain version
     (`ops.msm_bucket.bucket_level`, run on the same card tensors), bit for
     bit: H', T', kf', kl' and the whole bank, which starts as random limbs
-    and flags, so a column the level must not write shows.  The keys are
-    the window-12 digits of random scalars below r, recoded, sorted and
-    placed bit-reversed as `gpu_msm._window_sums` does, one group of 22
-    windows at n_pad 2^17 (cell B's h query) and 2^18 (the Falcon-1024
-    prove); H, T and the bridge random limbs and flags (the level moves
-    them, whatever they hold).  Every level of the 2^17 group (its 17
-    launches: level 1 over the affine leaves, the root the last), levels
-    1, 2 and the root at 2^18, each bit-equal.  Times of each level but
-    the 2^18 root: CUDA events of the wrapper, the plain version, profiler
-    device ms; bound:
-    the bytes that level's data needs (`bucket_level_bytes`) over the
-    card's rate, and its share of the device time; the buckets each level
-    of the 2^17 group writes, which sum to the group's distinct (window,
-    key) pairs; the ptxas lines of both instantiations (level 1's, affine,
-    under `affine_ptxas`)."""
-    from falcon_r1cs_tpu_torch.ops import msm_bucket, msm_recode
-    from falcon_r1cs_tpu_torch.snark import gpu_msm
-    from falcon_r1cs_tpu_torch.snark.bls12_381 import R
-    from falcon_r1cs_tpu_torch.snark.points import ints_to_limbs
+    and flags, so a column the level must not write shows.  Three groups
+    of 22 windows, their keys recoded at window 12, sorted and placed
+    bit-reversed as `gpu_msm._window_sums` does (`ops.tune_msm_bucket`):
+    random scalars below r at n_pad 2^17 (cell B's h query) and 2^18 (the
+    Falcon-1024 prove), and cell B's a query at 2^17, the digits of the
+    Falcon-512 assignment z512 (62.5 % zero scalars, windows 12-21 all
+    zero; no point masked infinite); H, T and the bridge random limbs and
+    flags (the level moves them, whatever they hold).  Every level of both
+    2^17 groups (17 launches each: level 1 over the affine leaves, the
+    root the last), levels 1, 2 and the root at 2^18, each bit-equal, in
+    the form the entry picks (`msm_bucket.lanes_a_cta`).  Times of each
+    level but the 2^18 root: CUDA events of the wrapper, profiler device
+    ms, and the plain version's (not for the a query); bound: the bytes
+    that level's data needs (`bucket_level_bytes`) over the card's rate,
+    and its share of the device time; the buckets each level writes,
+    which sum to the group's distinct (window, key) pairs; each 2^17
+    group's summed device ms and bound; the ptxas lines of every
+    instantiation (`ptxas_forms`; level 1's are the affine ones)."""
+    from falcon_r1cs_tpu_torch.ops import msm_bucket
+    from falcon_r1cs_tpu_torch.ops import tune_msm_bucket as tune
 
     wrapper = msm_bucket.bucket_level_cuda
-    W, window, nb = 22, 12, (1 << 11) + 1
-    rng = np.random.default_rng(20261027)
     g = torch.Generator(device=dev).manual_seed(20261027)
-
-    def limbs(*shape):
-        return torch.randint(-2**12, 2**12, shape, generator=g, device=dev, dtype=torch.int32)
-
-    def flags(*shape):
-        return torch.randint(0, 2, shape, generator=g, device=dev).bool()
-
-    out = {}
-    for log_n in (17, 18):
-        n = 1 << log_n
-        sc = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
-        sc = torch.from_numpy(ints_to_limbs(sc, 4).view(np.int64)).to(dev)
-        digits, _ = msm_recode.signed_digits_cuda(sc, torch.zeros(n, dtype=torch.bool,
-                                                                  device=dev), window, n)
-        _, keys, _ = gpu_msm._sorted_leaves(digits, window)
+    groups = {"random 2^17": tune.random_keys(17, dev),
+              "a query 2^17": tune.witness_keys(z512, dev),
+              "random 2^18": tune.random_keys(18, dev, seed=20261028)}
+    out, sums = {}, {}
+    for gname, keys in groups.items():
+        W, n = keys.shape
         emissions = bucket_emissions(keys)
         distinct = sum(int(keys[w].unique().numel()) for w in range(W))
         assert sum(emissions) == distinct, (sum(emissions), distinct)
-        # every level of the 2^17 group (level 1 the widest, the root at
+        # every level of the 2^17 groups (level 1 the widest, the root at
         # c = 2), the widest two and the root at 2^18
-        levels = [n >> i for i in range(log_n)] if log_n == 17 else [n, n // 2, 2]
+        levels = [n >> i for i in range(n.bit_length() - 1)] if n == 1 << 17 else [n, n // 2, 2]
         for c in levels:
-            if c == n:
-                H = T = (limbs(35, W, n), limbs(35, W, n), None, flags(W, n))
-                kf = kl = keys
-            else:
-                H, T = ((limbs(35, W, c), limbs(35, W, c), limbs(35, W, c), flags(W, c))
-                        for _ in range(2))
-                kf, kl = keys[:, :c].contiguous(), keys[:, n - c:].contiguous()
-            bridge = (limbs(35, W, c // 2), limbs(35, W, c // 2), limbs(35, W, c // 2),
-                      flags(W, c // 2))
-            bank = (*limbs(3, 35, W * nb).unbind(), flags(W * nb))
+            args = tune.level_inputs(keys, c, g)
+            bridge, H, T, kf, kl, bank, nb = args
             got_bank = tuple(a.clone() for a in bank)
             args = (bridge, H, T, kf, kl, got_bank, nb)
             got = wrapper(*args)
@@ -1626,38 +1608,55 @@ def bucket_kernel_vs_plain(dev, launches, build_log):
             for a, b in zip(got[0] + got[1] + got[2:] + got_bank,
                             want[0] + want[1] + want[2:] + bank):
                 assert a.dtype == b.dtype and torch.equal(a, b), \
-                    f"bucket_level_kernel n_pad 2^{log_n} c={c} differs from its plain version"
-            if c == 2 and log_n != 17:
+                    f"bucket_level_kernel {gname} c={c} differs from its plain version"
+            if c == 2 and n != 1 << 17:
                 continue
             del got, want
             ms = cuda_ms(lambda: wrapper(*args))
-            plain_ms = cuda_ms(lambda: msm_bucket.bucket_level(*args), reps=5, inner=1)
+            plain_ms = (cuda_ms(lambda: msm_bucket.bucket_level(*args), reps=5, inner=1)
+                        if gname.startswith("random") else None)
             dev_ms = kernel_device_ms(wrapper, args, "bucket_level_kernel", calls=4)
             nbytes, emitted = bucket_level_bytes(kf, kl, c == n)
             bound_ms, _ = bound(nbytes, 0)
-            level = log_n + 2 - c.bit_length()
-            log(f"bucket_level_kernel n_pad 2^{log_n}, {W} windows, level {level} ({c} lanes in, "
-                f"{emitted} buckets written): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), "
-                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB, "
+            level = tune.level_of(n, c)
+            lanes = msm_bucket.lanes_a_cta(W, c)
+            log(f"bucket_level_kernel {gname}, {W} windows, level {level} ({c} lanes in, "
+                f"{lanes} a CTA, {emitted} buckets written): kernel {ms:.4f} ms (device "
+                f"{dev_ms:.4f} ms), plain "
+                + ("not timed" if plain_ms is None else f"{plain_ms:.4f} ms")
+                + f", bound {bound_ms:.4f} ms ({nbytes / 1e9:.4f} GB, "
                 f"{100 * bound_ms / dev_ms:.1f} % of the device time); bit-equal, the bank "
                 "included")
-            out[(log_n, level)] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+            out[(gname, level)] = dict(ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
                                        bound_ms=bound_ms, bound_share=bound_ms / dev_ms,
-                                       nbytes=nbytes, buckets=emitted)
+                                       nbytes=nbytes, buckets=emitted, lanes_a_cta=lanes)
             del args, H, T, bridge, bank, got_bank
-        out[(log_n, "emissions")] = emissions
-        log(f"bucket_level_kernel n_pad 2^{log_n}: buckets written a level, level 1 first: "
+        out[(gname, "emissions")] = emissions
+        log(f"bucket_level_kernel {gname}: buckets written a level, level 1 first: "
             f"{emissions} ({distinct} in all, the group's distinct (window, key) pairs)")
-    main = out[(17, 2)]
+        if n == 1 << 17:
+            rows = [v for k, v in out.items() if k[0] == gname and k[1] != "emissions"]
+            dev_sum = sum(v["device_ms"] for v in rows)
+            bound_sum = sum(v["bound_ms"] for v in rows)
+            sums[gname] = dict(device_ms=dev_sum, bound_ms=bound_sum,
+                               bound_share=bound_sum / dev_sum)
+            log(f"bucket_level_kernel {gname}: the group's 17 levels {dev_sum:.4f} ms device, "
+                f"bound {bound_sum:.4f} ms ({100 * bound_sum / dev_sum:.1f} %)")
+    main = out[("random 2^17", 2)]
+    forms = {f"{'affine' if a else 'jacobian'} {L}": ptxas(
+        build_log, f"bucket_level_kernelILb{a}ELi{L}E", 256) for a in (0, 1)
+        for L in msm_bucket.LANE_FORMS}
+    assert all(not v or (v["spill_stores"], v["spill_loads"], v["stack"]) == (0, 0, 0)
+               for v in forms.values()), forms
     return record(
         "bucket_level_kernel", "falcon_r1cs_tpu_torch/csrc/msm_bucket.cu",
         "none: the JAX package's bucket selects and scatters are XLA "
         "(falcon_r1cs_tpu/snark/tpu_msm_blocks.py:216)",
         launches, 0, main["ms"], main["plain_ms"], main["nbytes"], 0,
-        device_ms=main["device_ms"], **ptxas(build_log, "bucket_level_kernelILb0E", 256),
-        affine_ptxas=ptxas(build_log, "bucket_level_kernelILb1E", 256),
-        levels={f"n_pad 2^{k[0]} level {k[1]}": v for k, v in out.items() if k[1] != "emissions"},
-        buckets_a_level={f"n_pad 2^{k[0]}": v for k, v in out.items() if k[1] == "emissions"},
+        device_ms=main["device_ms"], **forms["jacobian 256"], ptxas_forms=forms,
+        levels={f"{k[0]} level {k[1]}": v for k, v in out.items() if k[1] != "emissions"},
+        buckets_a_level={k[0]: v for k, v in out.items() if k[1] == "emissions"},
+        group_sums=sums,
     )
 
 
@@ -1818,7 +1817,7 @@ def tile_bytes_ops(n, t, nvec, round_trip, scaled):
     return nbytes, FR_MONT_MULS * products
 
 
-def fr_kernels_vs_plain(dev, launches, witness, build_log):
+def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
     """The witness map's seven Fr kernels (csrc/fr_mont.cu) against their
     plain versions (ops/fr.py, run on the same card tensors), word for
     word, at the shapes of the Falcon-1024 prove's witness map (domain
@@ -1829,7 +1828,8 @@ def fr_kernels_vs_plain(dev, launches, witness, build_log):
     that the round trip replaces, timed beside it), the widest DIF stage,
     the quotient, the exit with the bit-reversed rows, the stage twiddles
     of w.  The two redesigned kernels, the sparse product and the tile,
-    also at cell B's Falcon-512 witness map (2^17).  Times: CUDA events
+    also at cell B's Falcon-512 witness map (2^17; `witness512`, from
+    `falcon512_witness`).  Times: CUDA events
     of the wrapper and of the plain version, profiler device ms; bound:
     the bytes each must move (each input read once, each output written
     once) and its int32 multiplies (FR_MONT_MULS a product; the
@@ -1895,7 +1895,7 @@ def fr_kernels_vs_plain(dev, launches, witness, build_log):
             (torch.from_numpy(sub_order).to(dev), sub_long), int(entries.sum())
 
     at = {}
-    for compiled, z in (witness, falcon512_witness()):
+    for compiled, z in (witness, witness512):
         cache = gpu_qap._cache(compiled, dev)
         n, k = cache["dom"].size, cache["dom"].log_size
         ni = compiled.num_instance
@@ -2354,8 +2354,10 @@ def main():
         + "; ".join(f"{k} {v:.2f}" for k, v in costs.items()))
     records += fq_kernels_vs_plain(dev, g16_launches, build_log)
     records.append(recode_kernel_vs_plain(dev, g16_launches["signed_digits_kernel"], build_log))
-    records.append(bucket_kernel_vs_plain(dev, g16_launches["bucket_level_kernel"], build_log))
-    records += fr_kernels_vs_plain(dev, g16_launches, g16_witness, build_log)
+    witness512 = falcon512_witness()
+    records.append(bucket_kernel_vs_plain(dev, g16_launches["bucket_level_kernel"], build_log,
+                                          witness512[1]))
+    records += fr_kernels_vs_plain(dev, g16_launches, g16_witness, witness512, build_log)
     records.append(semi_kernel_vs_plain(dev, semi_launches, build_log))
 
     # device part of the main path alone: engine + packer on uploaded inputs

@@ -62,7 +62,7 @@ _ARGTYPES = {
     "point_add_launch": [_P] * 12 + [_I, _P],
     "point_add_aff_launch": [_P] * 10 + [_I, _P],
     "signed_digits_launch": [_P] * 4 + [_I] * 5 + [_P],
-    "bucket_level_launch": [_P] * 21 + [_I] * 3 + [_P],
+    "bucket_level_launch": [_P] * 21 + [_I] * 4 + [_P],
     "fr_to_mont_launch": [_P, _P, _I, _P],
     "fr_from_mont_launch": [_P, _P, _I, _I, _P],
     "fr_spmv_launch": [_P, _P, _P, _I, _P, _I, _P] + [_I] * 3 + [_P, _I, _P],

@@ -24,7 +24,19 @@ is written once over the tree (snark/gpu_msm.py `_bucket_reduce_flat`).
 only moves data).  `bucket_level_cuda` takes it for CPU tensors, launches
 `bucket_level_kernel` for CUDA tensors and raises for anything else;
 there is no fallback from a CUDA tensor to the plain path.  `.launches`
-counts kernel launches.
+counts kernel launches, one a level.
+
+The kernel runs a level in CTAs of 256 threads that each take L lanes
+(`LANE_FORMS`: 256, or 32 down to 1), in three phases: all threads copy
+H' and T' limb by limb, the lane fastest; a thread a lane decides the
+bucket writes and lists them in shared memory (at the narrow levels for
+the CTA's nodes in key order, so that neighbouring records close
+neighbouring keys); all threads write the listed buckets limb by limb,
+the record fastest.  The C entry picks L from W c/2 (`SPLIT`, which
+`lanes_a_cta` reads): 256 at the wide levels, fewer at the narrow ones,
+so their few lanes still spread over the card.  `lanes=` forces a form
+(the tuner `ops/tune_msm_bucket.py` and the card tests); every form
+computes the same function.
 """
 
 from __future__ import annotations
@@ -36,6 +48,18 @@ from . import fq_mont as fq
 from .fq import _check
 
 NL = fq.NL
+# the kernel's forms: lanes a CTA of 256 threads
+LANE_FORMS = (256, 32, 16, 8, 4, 2, 1)
+# the entry's split (csrc/msm_bucket.cu kSplit): (lanes W c/2 from, lanes
+# a CTA), the first row a level reaches
+SPLIT = ((90112, 256), (11264, 32), (5632, 16), (704, 8), (352, 4), (44, 2), (0, 1))
+
+
+def lanes_a_cta(W: int, c: int) -> int:
+    """The lanes a CTA the C entry picks for a level of c lanes over W
+    windows (lanes = 0)."""
+    m2 = W * (c // 2)
+    return next(L for start, L in SPLIT if m2 >= start)
 
 
 def bucket_bank(W: int, nb: int, device):
@@ -92,15 +116,19 @@ def bucket_level(bridge, H, T, kf, kl, bank, nb: int):
     return Hn, Tn, lkf.contiguous(), rkl.contiguous()
 
 
-def bucket_level_cuda(bridge, H, T, kf, kl, bank, nb: int):
+def bucket_level_cuda(bridge, H, T, kf, kl, bank, nb: int, lanes: int = 0):
     """One merge level: the kernel on CUDA tensors, the plain version on
     CPU tensors.  Writes into `bank`; returns (H', T', kf', kl').  Every
     key must lie in [0, nb) (the recode's magnitudes do); the kernel does
-    not check it, which would take a read back from the card."""
+    not check it, which would take a read back from the card.  `lanes`:
+    the kernel's lanes a CTA, one of LANE_FORMS, or 0 for the entry's
+    own choice (`lanes_a_cta`)."""
+    name = "bucket_level_cuda"
+    if lanes and lanes not in LANE_FORMS:
+        raise ValueError(f"{name}: lanes = {lanes}, want 0 or one of {LANE_FORMS}")
     tensors = [*bridge, *(a for a in H + T if a is not None), kf, kl, *bank]
     if all(t.device.type == "cpu" for t in tensors):
         return bucket_level_cuda.plain(bridge, H, T, kf, kl, bank, nb)
-    name = "bucket_level_cuda"
     dev = kf.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
@@ -137,7 +165,7 @@ def bucket_level_cuda(bridge, H, T, kf, kl, bank, nb: int):
     _build.launch("bucket_level_launch", dev, *(ptr(a) for a in H + T), kf.data_ptr(),
                   kl.data_ptr(), *(a.data_ptr() for a in bridge), out.data_ptr(),
                   out_inf.data_ptr(), out_keys.data_ptr(), *(a.data_ptr() for a in bank),
-                  W, c, nb)
+                  W, c, nb, lanes)
     bucket_level_cuda.launches += 1
     (h, t), (h_inf, t_inf) = out.unbind(), out_inf.unbind()
     return (*h.unbind(), h_inf), (*t.unbind(), t_inf), *out_keys.unbind()

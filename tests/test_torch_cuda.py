@@ -489,12 +489,40 @@ def test_recode_wrapper_refuses_bad_inputs(cuda):
     assert msm_recode.signed_digits_cuda.launches == before
 
 
-def _level_inputs(W, n, c, seed, device):
+def _mags(kind, W, n, seed):
+    """(W, n) window-12 digit magnitudes of a key pattern aimed at the
+    bucket writes (tests/test_torch_msm_bucket.py `_digits` holds the
+    same patterns against the JAX package): "witness" 62 % zero, 28 % one,
+    the rest spread, the top third of the windows zero; "node" runs of
+    exactly max(4, n / 2048) equal keys, so that the level merging
+    two-run nodes, and each above it, closes every lane twice; "root"
+    three keys a window over a quarter, a half and a quarter of the
+    leaves, so that the root writes three buckets in every window."""
+    rng = np.random.default_rng(seed)
+    half = 1 << 11
+    mag = rng.integers(2, half + 1, size=(W, n))
+    if kind == "witness":
+        zeros, ones = round(0.62 * n), round(0.28 * n)
+        u = np.stack([rng.permutation(n) for _ in range(W)])
+        mag = np.where(u < zeros, 0, np.where(u < zeros + ones, 1, mag))
+        mag[W - max(1, W // 3):] = 0
+    elif kind == "node":
+        size = max(4, n // half)
+        mag = np.stack([rng.permutation(np.repeat(np.arange(n // size), size))
+                        for _ in range(W)])
+    elif kind == "root":
+        mag = np.stack([rng.permutation(np.repeat([k, k + 1, k + 2], [n // 4, n // 2, n // 4]))
+                        for k in 1 + np.arange(W) % (half - 2)])
+    return torch.from_numpy(mag.astype(np.int32))
+
+
+def _level_inputs(W, n, c, seed, device, kind="random"):
     """One merge level of c lanes of a W-window group over n leaves: the
-    keys of sorted random window-12 digits, placed bit-reversed (a level
-    of c lanes has kf = keys[:, :c], kl = keys[:, n - c:]); H, T (no Z at
-    c = n: the affine leaves, kf = kl = the keys), the bridge and a bank
-    of random limbs and flags (the level only moves them)."""
+    keys of sorted window-12 digits (random, or a `_mags` pattern), placed
+    bit-reversed (a level of c lanes has kf = keys[:, :c], kl =
+    keys[:, n - c:]); H, T (no Z at c = n: the affine leaves, kf = kl =
+    the keys), the bridge and a bank of random limbs and flags (the level
+    only moves them)."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def limbs(*shape):
@@ -504,8 +532,9 @@ def _level_inputs(W, n, c, seed, device):
     def flags(*shape):
         return torch.randint(0, 2, shape, generator=g, device=device).bool()
 
-    mags = torch.randint(0, (1 << 11) + 1, (W, n), generator=g, device=device,
-                         dtype=torch.int32)
+    mags = (torch.randint(0, (1 << 11) + 1, (W, n), generator=g, device=device,
+                          dtype=torch.int32)
+            if kind == "random" else _mags(kind, W, n, seed).to(device))
     _, keys, _ = gpu_msm._sorted_leaves(mags, 12)
     nb = (1 << 11) + 1
     if c == n:
@@ -539,6 +568,29 @@ def test_bucket_kernel_matches_plain(cuda, W, n, c):
         assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
     for g, w in zip(got_bank, bank):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lanes", (0,) + msm_bucket.LANE_FORMS)
+@pytest.mark.parametrize("kind", ["random", "witness", "node", "root"])
+def test_bucket_kernel_forms_match_plain(cuda, kind, lanes):
+    """Each lanes-a-CTA form, forced through the entry's argument (0: the
+    entry's choice), against the plain version bit for bit, the bank
+    included: every level of a small group (3 windows, 2^10 leaves) and
+    levels 6, 10 and 17 (the root) of a 22-window 2^17 group, on random
+    keys and on the three patterns aimed at the bucket writes."""
+    for W, n, levels in ((3, 1 << 10, range(1, 11)), (22, 1 << 17, (6, 10, 17))):
+        for level in levels:
+            c = n >> (level - 1)
+            bridge, H, T, kf, kl, bank, nb = _level_inputs(W, n, c, 60 + level, cuda, kind)
+            got_bank = tuple(a.clone() for a in bank)
+            before = msm_bucket.bucket_level_cuda.launches
+            got = msm_bucket.bucket_level_cuda(bridge, H, T, kf, kl, got_bank, nb, lanes)
+            assert msm_bucket.bucket_level_cuda.launches == before + 1
+            want = msm_bucket.bucket_level(bridge, H, T, kf, kl, bank, nb)
+            for g, w in zip(got[0] + got[1] + got[2:] + got_bank,
+                            want[0] + want[1] + want[2:] + bank):
+                assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w), \
+                    (W, n, level)
 
 
 def test_bucket_reduction_2_18_matches_plain(cuda, monkeypatch):
@@ -589,6 +641,8 @@ def test_bucket_wrapper_refuses_bad_inputs(cuda):
         (bridge, leaves, T, kf, kl, bank, nb),                               # affine H only
         (tuple(a[..., :3] for a in bridge), tuple(a[..., :6] for a in H),
          tuple(a[..., :6] for a in T), kf[:, :6], kl[:, :6], bank, nb),      # c = 6
+        (bridge, H, T, kf, kl, bank, nb, 3),                                 # lanes
+        (bridge, H, T, kf, kl, bank, nb, 512),
     ]
     for args in bad:
         with pytest.raises(ValueError):

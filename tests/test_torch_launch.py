@@ -272,6 +272,31 @@ def test_recode_window_count_reaches_the_kernel(mock_library, window, nw):
         assert calls == [] and msm_recode.signed_digits_cuda.launches == before
 
 
+@pytest.mark.parametrize("lanes", [0, 1, 32, 256])
+def test_bucket_lanes_reach_the_kernel(mock_library, lanes):
+    """The merge level's wrapper passes W, c, nb and its lanes a CTA (0:
+    the entry's choice) to the C entry point, before the stream; a lanes
+    count that is no form is refused before any call."""
+    calls, _, _ = mock_library
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        dev = torch.device("cuda", 0)
+        nodes = torch.zeros((35, 2, 8), dtype=torch.int32, device=dev)
+        level = (nodes, nodes, nodes, torch.zeros((2, 8), dtype=torch.bool, device=dev))
+        half = torch.zeros((35, 2, 4), dtype=torch.int32, device=dev)
+        bridge = (half, half, half, torch.zeros((2, 4), dtype=torch.bool, device=dev))
+        keys = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+        bank = msm_bucket.bucket_bank(2, 3, dev)
+        msm_bucket.bucket_level_cuda(bridge, level, level, keys, keys, bank, 3, lanes)
+        assert calls[-1][0] == "bucket_level_launch"
+        assert calls[-1][1][-5:] == (2, 8, 3, lanes, STREAM)
+        del calls[:]
+        before = msm_bucket.bucket_level_cuda.launches
+        for bad in (3, 48, 512, -1):
+            with pytest.raises(ValueError, match="lanes"):
+                msm_bucket.bucket_level_cuda(bridge, level, level, keys, keys, bank, 3, bad)
+        assert calls == [] and msm_bucket.bucket_level_cuda.launches == before
+
+
 @pytest.mark.parametrize("log_n, nvec", [(11, 1), (11, 3), (17, 3), (3, 3)])
 def test_fr_tile_batch_reaches_the_kernel(mock_library, log_n, nvec):
     """The tile's wrapper passes n, the tile's log (at most 10), the form
