@@ -56,11 +56,12 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
   with the same r and s; `prove_batch.run` at K = 4 (the K witnesses from
   one engine call, K1 twice) on gpu and native, every proof equal to its
   native single prove; `pp_vs_dp.run` over 2 ranks, refused on one card;
-- the benchmark: `bench_torch.py`'s three cells (BENCHMARK.json), the
+- the benchmark: `bench_torch.py`'s four cells (BENCHMARK.json), the
   main path from wire bytes at B = 1024, the Falcon-512 prove with the
-  G1 MSMs on the card and the dual-NTT witnesses of B = 512 decoded
-  signatures, each once at `--samples 3 --seconds 0`: gate passed, every
-  metric the file names printed and positive.
+  G1 MSMs on the card, the dual-NTT witnesses of B = 512 decoded
+  signatures and the schoolbook witnesses of B = 128, each once at
+  `--samples 3 --seconds 0`: gate passed, every metric the file names
+  printed and positive.
 
 It builds the kernels from csrc/, checks that each path launched its
 kernels (counts set to 0 just before the path, read just after), holds
@@ -1817,6 +1818,29 @@ def tile_bytes_ops(n, t, nvec, round_trip, scaled):
     return nbytes, FR_MONT_MULS * products
 
 
+def fr_sass(kernel):
+    """The static SASS opcode counts of one Fr kernel of the built library:
+    IMAD, BRA, and every instruction but NOP (`issued`)."""
+    from falcon_r1cs_tpu_torch.ops import _build
+
+    (opcodes,) = [v for key, v in _build.sass_counts(_build.library_path()).items()
+                  if kernel in key]
+    return {"imad": opcodes["IMAD"], "bra": opcodes["BRA"],
+            "issued": sum(v for k, v in opcodes.items() if k != "NOP")}
+
+
+def z_warp_top_words(z) -> dict:
+    """Warps of 32 consecutive rows of z by the highest word that one of
+    their rows has nonzero (-1: every row 0): the rounds whose a b_i the
+    entry runs in that warp are those up to it."""
+    from falcon_r1cs_tpu_torch.snark.native_backend import z_rows
+
+    words = z_rows(z).view(np.uint32).reshape(-1, 8) != 0
+    top = np.where(words.any(axis=1), 7 - np.argmax(words[:, ::-1], axis=1), -1)
+    top = np.concatenate([top, np.full(-len(top) % 32, -1)]).reshape(-1, 32).max(axis=1)
+    return {str(w): int((top == w).sum()) for w in range(-1, 8) if (top == w).any()}
+
+
 def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
     """The witness map's seven Fr kernels (csrc/fr_mont.cu) against their
     plain versions (ops/fr.py, run on the same card tensors), word for
@@ -1827,19 +1851,23 @@ def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
     a, b and c (the DIF tile with h's scale, and the six single-form tiles
     that the round trip replaces, timed beside it), the widest DIF stage,
     the quotient, the exit with the bit-reversed rows, the stage twiddles
-    of w.  The two redesigned kernels, the sparse product and the tile,
-    also at cell B's Falcon-512 witness map (2^17; `witness512`, from
-    `falcon512_witness`).  Times: CUDA events
+    of w.  The four redesigned kernels, the entry, the sparse product, the
+    tile and the exit, also at cell B's Falcon-512 witness map (2^17;
+    `witness512`, from `falcon512_witness`); the entry also on A's CSR
+    values (full-width rows) at 2^18, with z's warps by their highest
+    nonzero word at both maps; the exit also at 2^21; both with their
+    static SASS counts.  Times: CUDA events
     of the wrapper and of the plain version, profiler device ms; bound:
     the bytes each must move (each input read once, each output written
-    once) and its int32 multiplies (FR_MONT_MULS a product; the
+    once) and its int32 multiplies (FR_MONT_MULS a product, the entry's
+    and the exit's too, whatever their kernels skip; the
     twiddles' products counted from this run's exponents); ptxas and SM
     residency.  The whole
     witness map by CUDA events and under the profiler, at both domains,
     rides in the entry's record.  `launches`: the groth16 path's prove
     run."""
     from falcon_r1cs_tpu_torch.ops import fr
-    from falcon_r1cs_tpu_torch.snark import gpu_qap
+    from falcon_r1cs_tpu_torch.snark import gpu_qap, native_backend
     from falcon_r1cs_tpu_torch.snark.native_backend import z_rows
 
     def timed(name, wrapper, args, make, nbytes, ops, plain_reps=3, kernel=None):
@@ -1899,12 +1927,21 @@ def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
         cache = gpu_qap._cache(compiled, dev)
         n, k = cache["dom"].size, cache["dom"].log_size
         ni = compiled.num_instance
-        zt = fr.to_mont_cuda(torch.from_numpy(z_rows(z).view(np.int64)).to(dev))
+        zrows = torch.from_numpy(z_rows(z).view(np.int64)).to(dev)
+        zt = fr.to_mont_cuda(zrows)
         nz = zt.shape[1]
         evals = torch.empty((3, fr.WORDS, n), dtype=torch.int32, device=dev)
         for x, m in zip(evals, "abc"):
             fr.spmv_cuda(*cache[m], zt, n, ni if m == "a" else 0, bins=cache[f"{m}_bins"], out=x)
-        recs = {}
+        recs = {"z_warp_top_words": z_warp_top_words(z)}
+        log(f"z at 2^{k}: warps of 32 rows by their highest nonzero word (-1: all 0): "
+            f"{recs['z_warp_top_words']}")
+        recs["entry"] = timed("fr_to_mont_kernel", fr.to_mont_cuda, (zrows,), lambda: (zrows,),
+                              64 * nz, FR_MONT_MULS * nz)
+        line(f"fr_to_mont_kernel (z, {nz} rows)", k, recs["entry"])
+        recs["exit"] = timed("fr_from_mont_kernel", fr.from_mont_cuda, (evals[0],),
+                             lambda: (evals[0],), 64 * n, FR_MONT_MULS * n)
+        line("fr_from_mont_kernel", k, recs["exit"])
         for m in "abc":
             row_ptr, cols, _ = cache[m]
             margs = (*cache[m], zt, n, ni if m == "a" else 0)
@@ -1967,9 +2004,7 @@ def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
     cache = gpu_qap._cache(compiled, dev)
     dom = cache["dom"]
     n, k = dom.size, dom.log_size
-    rows = torch.from_numpy(z_rows(z).view(np.int64)).to(dev)
-    nz = rows.shape[0]
-    zt = fr.to_mont_cuda(rows)
+    zt = fr.to_mont_cuda(torch.from_numpy(z_rows(z).view(np.int64)).to(dev))
     evals = [fr.spmv_cuda(*cache[m], zt, n, compiled.num_instance if m == "a" else 0,
                           bins=cache[f"{m}_bins"]) for m in "abc"]
     x = evals[0]
@@ -1978,16 +2013,12 @@ def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
     e = fr.exponents(n, k, fr.MODE_STAGE)
     popcount = sum(int(((e >> b) & 1).sum()) for b in range(k))
     cases = [
-        ("fr_to_mont_kernel", fr.to_mont_cuda, lambda: (rows,), 64 * nz,
-         FR_MONT_MULS * nz, "fr_to_mont_kernel", 256),
         ("fr_ntt_stage_kernel", fr.ntt_stage_cuda,
          lambda: (x.clone(), cache["tw_inv"], k - 1, True), 32 * (2 * n + n // 2),
          FR_MONT_MULS * n // 2, "fr_ntt_stage_kernelILb1", 256),
         ("fr_quotient_kernel", fr.quotient_cuda,
          lambda: (evals[0].clone(), *evals[1:], cache["zinv"]),
          32 * (4 * n + 1), 2 * FR_MONT_MULS * n, "fr_quotient_kernel", 256),
-        ("fr_from_mont_kernel", fr.from_mont_cuda, lambda: (x,), 64 * n,
-         FR_MONT_MULS * n, "fr_from_mont_kernel", 256),
         ("fr_powers_kernel", fr.powers_cuda, lambda: (sq, one, k, fr.MODE_STAGE),
          32 * (n + fr.MAX_LOG + 1), FR_MONT_MULS * popcount, "fr_powers_kernel", 256),
     ]
@@ -2006,25 +2037,52 @@ def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
     for name, wrapper, make, nbytes, ops, mangled, threads in cases:
         rec = timed(name, wrapper, make(), make, nbytes, ops)
         extra = {}
-        if name == "fr_to_mont_kernel":
-            extra["witness_map"] = {f"2^{kk}": at[kk]["witness_map"] for kk in at}
         if name == "fr_quotient_kernel":
             # two products and a subtraction, no loop: what a product
             # issues, against the FR_MONT_MULS the bounds count
-            from falcon_r1cs_tpu_torch.ops import _build
-
-            (opcodes,) = [v for key, v in _build.sass_counts(_build.library_path()).items()
-                          if "fr_quotient_kernel" in key]
-            sass = {"imad": opcodes["IMAD"], "bra": opcodes["BRA"],
-                    "issued": sum(v for k, v in opcodes.items() if k != "NOP")}
-            extra["sass"] = sass
-            log(f"fr_quotient_kernel SASS a thread (two products): {sass}; the bounds count "
-                f"{FR_MONT_MULS} multiplies a product")
+            extra["sass"] = fr_sass("fr_quotient_kernel")
+            log(f"fr_quotient_kernel SASS a thread (two products): {extra['sass']}; the bounds "
+                f"count {FR_MONT_MULS} multiplies a product")
         line(name, k, rec)
         records.append(record(
             name, source, replaces, launches[name], rec["err"], rec["ms"], rec["plain_ms"],
             nbytes, ops, device_ms=rec["device_ms"], **ptxas(build_log, mangled, threads),
             **extra))
+    # the entry: z at both maps (above), A's CSR values at 2^18 (full-width,
+    # no round skipped: 1 launch of 3 a new circuit)
+    a_vals = torch.from_numpy(np.ascontiguousarray(
+        native_backend._compiled_cache(compiled)["a"][2]).view(np.int64)).to(dev)
+    nnz = a_vals.shape[0]
+    csr = timed("fr_to_mont_kernel A values", fr.to_mont_cuda, (a_vals,), lambda: (a_vals,),
+                64 * nnz, FR_MONT_MULS * nnz, kernel="fr_to_mont_kernel")
+    line(f"fr_to_mont_kernel on A's CSR values ({nnz} full-width rows)", k, csr)
+    entry, exit_ = at[k]["entry"], at[k]["exit"]
+    sass = fr_sass("fr_to_mont_kernel")
+    log(f"fr_to_mont_kernel static SASS a thread ({fr.ENTRY_PER} rows, every round's branch): "
+        f"{sass}")
+    records.insert(0, record(
+        "fr_to_mont_kernel", source, replaces, launches["fr_to_mont_kernel"], entry["err"],
+        entry["ms"], entry["plain_ms"], entry["nbytes"], entry["ops"],
+        device_ms=entry["device_ms"], **ptxas(build_log, "fr_to_mont_kernel", fr.ENTRY_THREADS),
+        sass=sass, a_csr_values=csr,
+        at={f"2^{kk}": {m: at[kk][m] for m in ("entry", "z_warp_top_words")} for kk in at},
+        witness_map={f"2^{kk}": at[kk]["witness_map"] for kk in at}))
+    # the exit: both maps (above) and prove_large's domain, 2^21
+    x21 = fr.to_mont_cuda(torch.from_numpy(np.random.default_rng(21).integers(
+        0, 2**63, size=(1 << 21, 4), dtype=np.int64)).to(dev))
+    exit21 = timed("fr_from_mont_kernel", fr.from_mont_cuda, (x21,), lambda: (x21,), 64 << 21,
+                   FR_MONT_MULS << 21, plain_reps=1)
+    line("fr_from_mont_kernel", 21, exit21)
+    del x21
+    sass = fr_sass("fr_from_mont_kernel")
+    log(f"fr_from_mont_kernel static SASS a thread ({fr.EXIT_PER} elements and the store "
+        f"loop): {sass}")
+    exit_threads = (1 << (2 * fr.EXIT_SIDE_LOG)) // fr.EXIT_PER
+    records.insert(len(records) - 1, record(
+        "fr_from_mont_kernel", source, replaces, launches["fr_from_mont_kernel"], exit_["err"],
+        exit_["ms"], exit_["plain_ms"], exit_["nbytes"], exit_["ops"],
+        device_ms=exit_["device_ms"], **ptxas(build_log, "fr_from_mont_kernel", exit_threads),
+        sass=sass, at={**{f"2^{kk}": at[kk]["exit"] for kk in at}, "2^21": exit21}))
     spmv, tile = at[k]["a"], at[k]["tile"]
     records.insert(1, record(
         "fr_spmv_kernel", source, replaces, launches["fr_spmv_kernel"], spmv["err"],

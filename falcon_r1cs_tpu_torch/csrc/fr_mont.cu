@@ -25,14 +25,23 @@
 // words, no carry out of t[8]), and one conditional subtraction of r makes
 // every product canonical; add and subtract correct once by r.  One
 // product is 2 x 64 multiplies for a b and 8 x (1 + 16) for the
-// reduction: 264 int32 multiplies (chip_smoke.py FR_MONT_MULS).
+// reduction: 264 int32 multiplies (chip_smoke.py FR_MONT_MULS).  The
+// reduction alone (`redc`, the exit's v 2^-256) is those 136: t = v < 2^256,
+// and each round's t + m r < 2^256 + 2^32 r < 2^288 fits nine words, its
+// shifted result below 2^224 + r < 2^256, so t[8] is 0 again; after 8
+// rounds t = (v + M r) / 2^256 with M < 2^256, below r + 1, and one
+// conditional subtraction of r makes it canonical for any v < 2^256.
 //
 // The kernels:
 // - fr_to_mont_kernel: (n, 4) u64 rows -> planes, x mod r times R'^2 (one
-//   product), one thread an element;
-// - fr_from_mont_kernel: planes of n = 2^k -> (n, 4) u64 rows, one product
-//   by 1, element i written at row bitrev(i), so the last inverse
-//   transform, whose output is bit-reversed, needs no permutation pass;
+//   product), one row a thread; in a warp whose rows stay below word 7 the
+//   product takes x as the CIOS b operand and runs round i's a b_i chains
+//   only where some lane has x.w[i] != 0 (z is mostly 0 and 1);
+// - fr_from_mont_kernel: planes of n = 2^k -> (n, 4) u64 rows, the
+//   Montgomery reduction alone, element i written at row bitrev(i), so the
+//   last inverse transform, whose output is bit-reversed, needs no
+//   permutation pass; a CTA a tile of 2^2s elements, the rows staged in
+//   shared memory so that a warp's loads and stores each cover one span;
 // - fr_spmv_kernel: out[row] = sum val z[col] over a CSR matrix whose rows
 //   come binned by length (ops/fr.py spmv_order, once a circuit): the
 //   long rows (A's of 1,026 to 2,075 entries at 2^18) one CTA each, its
@@ -111,37 +120,24 @@ struct Fr {
   u32 w[kW];
 };
 
-// o = a b 2^-256 mod r, canonical: a, b < r -> o < r.  Per word b_i four
-// carry chains: t += lo(a b_i), t += hi(a b_i) one word up, t += lo(m r),
-// then t = (t + hi(m r) one word up) / 2^32 with the shift folded into the
-// destinations; t < 2r after each step, so t[8] is 0 there.  Then t - r
-// unless that borrows.  o may alias a or b.
-__device__ __forceinline__ void mont(Fr& o, const Fr& a, const Fr& b) {
-  u32 t[kW + 1];
+// t = (t + m r) / 2^32, m = t_0 n0': one round of the reduction, two carry
+// chains, t += lo(m r), then t = (t + hi(m r) one word up) / 2^32 with the
+// shift folded into the destinations.  t[8] is 0 on return.
+__device__ __forceinline__ void reduce_round(u32 (&t)[kW + 1]) {
+  const u32 m = t[0] * kRInv;
+  mad_lo_cc(t[0], m, c_rw[0]);  // t[0] becomes 0
 #pragma unroll
-  for (int k = 0; k < kW + 1; ++k) t[k] = 0;
+  for (int j = 1; j < kW; ++j) madc_lo_cc(t[j], m, c_rw[j]);
+  addc_zero(t[kW]);
+  mad_hi_cc(t[0], m, c_rw[0], t[1]);  // word j - 1 <- word j: the shift
 #pragma unroll
-  for (int i = 0; i < kW; ++i) {
-    const u32 bi = b.w[i];
-    mad_lo_cc(t[0], a.w[0], bi);
-#pragma unroll
-    for (int j = 1; j < kW; ++j) madc_lo_cc(t[j], a.w[j], bi);
-    addc_zero(t[kW]);
-    mad_hi_cc(t[1], a.w[0], bi, t[1]);
-#pragma unroll
-    for (int j = 1; j < kW - 1; ++j) madc_hi_cc(t[j + 1], a.w[j], bi, t[j + 1]);
-    madc_hi(t[kW], a.w[kW - 1], bi, t[kW]);
-    const u32 m = t[0] * kRInv;
-    mad_lo_cc(t[0], m, c_rw[0]);  // t[0] becomes 0
-#pragma unroll
-    for (int j = 1; j < kW; ++j) madc_lo_cc(t[j], m, c_rw[j]);
-    addc_zero(t[kW]);
-    mad_hi_cc(t[0], m, c_rw[0], t[1]);  // word j - 1 <- word j: the shift
-#pragma unroll
-    for (int j = 1; j < kW - 1; ++j) madc_hi_cc(t[j], m, c_rw[j], t[j + 1]);
-    madc_hi(t[kW - 1], m, c_rw[kW - 1], t[kW]);
-    t[kW] = 0;
-  }
+  for (int j = 1; j < kW - 1; ++j) madc_hi_cc(t[j], m, c_rw[j], t[j + 1]);
+  madc_hi(t[kW - 1], m, c_rw[kW - 1], t[kW]);
+  t[kW] = 0;
+}
+
+// o = t[0 .. 8) - r unless that borrows
+__device__ __forceinline__ void canonical(Fr& o, const u32 (&t)[kW + 1]) {
   u32 d[kW], borrow;
   sub_cc(d[0], t[0], c_rw[0]);
 #pragma unroll
@@ -149,6 +145,47 @@ __device__ __forceinline__ void mont(Fr& o, const Fr& a, const Fr& b) {
   subc(borrow, 0u, 0u);  // 0xffffffff when t < r
 #pragma unroll
   for (int j = 0; j < kW; ++j) o.w[j] = borrow ? t[j] : d[j];
+}
+
+// o = a b 2^-256 mod r, canonical: a, b < r -> o < r.  Per word b_i four
+// carry chains: t += lo(a b_i), t += hi(a b_i) one word up, then the
+// reduction round; t < 2r after each step, so t[8] is 0 there.  Then t - r
+// unless that borrows.  o may alias a or b.  kSkipZero: round i's a b_i
+// chains run only where some lane of the warp has b.w[i] != 0 (every lane
+// must call it); where none has, they would add 0, so o is the same.
+template <bool kSkipZero = false>
+__device__ __forceinline__ void mont(Fr& o, const Fr& a, const Fr& b) {
+  u32 t[kW + 1];
+#pragma unroll
+  for (int k = 0; k < kW + 1; ++k) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < kW; ++i) {
+    const u32 bi = b.w[i];
+    if (!kSkipZero || __any_sync(0xffffffffu, bi != 0)) {
+      mad_lo_cc(t[0], a.w[0], bi);
+#pragma unroll
+      for (int j = 1; j < kW; ++j) madc_lo_cc(t[j], a.w[j], bi);
+      addc_zero(t[kW]);
+      mad_hi_cc(t[1], a.w[0], bi, t[1]);
+#pragma unroll
+      for (int j = 1; j < kW - 1; ++j) madc_hi_cc(t[j + 1], a.w[j], bi, t[j + 1]);
+      madc_hi(t[kW], a.w[kW - 1], bi, t[kW]);
+    }
+    reduce_round(t);
+  }
+  canonical(o, t);
+}
+
+// o = v 2^-256 mod r, canonical, for any v < 2^256 (REDC: the file's
+// header bounds it); o may alias v
+__device__ __forceinline__ void redc(Fr& o, const Fr& v) {
+  u32 t[kW + 1];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) t[k] = v.w[k];
+  t[kW] = 0;
+#pragma unroll
+  for (int i = 0; i < kW; ++i) reduce_round(t);
+  canonical(o, t);
 }
 
 // o = a + b mod r: a, b < r; the sum is below 2r < 2^256
@@ -202,13 +239,38 @@ __device__ __forceinline__ Fr constant(const u32 (&c)[kW]) {
 
 // i with its low `bits` >= 1 bits reversed
 __device__ __forceinline__ unsigned bitrev(unsigned i, int bits) { return __brev(i) >> (32 - bits); }
+// the same for `bits` >= 0
+__device__ __forceinline__ unsigned rev(unsigned x, int bits) {
+  return bits ? __brev(x) >> (32 - bits) : 0u;
+}
 
-__global__ void __launch_bounds__(kThreads)
-fr_to_mont_kernel(const ulonglong2* __restrict__ rows, u32* __restrict__ out, int n) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const ulonglong2 lo = rows[2 * static_cast<size_t>(i)];
-  const ulonglong2 hi = rows[2 * static_cast<size_t>(i) + 1];
+// -- the entry -------------------------------------------------------------
+//
+// A CTA of kEntryThreads threads takes kEntryPer runs of as many rows;
+// thread q's slot j is row base + j kEntryThreads + q, so a warp's slot
+// holds 32 consecutive rows, and the word skip of `mont` votes over them.
+// Every slot's two 16-byte loads are issued before the first product.
+// Lanes past n hold 0 and vote.  A warp where some row reaches word 7
+// (full-width values: A's, B's and C's CSR values) runs the straight-line
+// product, every round: the votes and the branches between rounds cost it
+// 7-8 % (ops/tune_fr.py, PERF.md section 6).  Every warp subtracts r
+// first: moved into the full-width branch, the subtractions (no-ops below
+// 2^224) cost the CSR values 3 %.  Reading a warp's 32 rows as two
+// contiguous 512-byte spans, the words handed to their lanes by shuffles,
+// measured no faster (`entry_row_shuffle` there).
+//
+// Why one row a thread: the carry chains of a thread's rows run one after
+// the other (PTX has one carry flag), so only more warps cover a chain's
+// dependent latency; 4 rows a thread ran 0.0091 ms at 2^18 against 0.0057
+// for 1 (158,773 rows, 38 warps an SM against 9.5).  CTAs of 128 threads
+// spread cell B's 79,411 rows over more SMs than 256 (0.0038 ms against
+// 0.0041) and cost nothing at 2^18.
+
+constexpr int kEntryThreads = 128;
+constexpr int kEntryPer = 1;  // rows a thread converts
+
+// the 8 words of the two 16-byte halves of a row, least first
+__device__ __forceinline__ Fr row_words(const ulonglong2& lo, const ulonglong2& hi) {
   const uint64_t l[4] = {lo.x, lo.y, hi.x, hi.y};
   Fr x;
 #pragma unroll
@@ -216,35 +278,103 @@ fr_to_mont_kernel(const ulonglong2* __restrict__ rows, u32* __restrict__ out, in
     x.w[2 * k] = static_cast<u32>(l[k]);
     x.w[2 * k + 1] = static_cast<u32>(l[k] >> 32);
   }
-  // x < 2^256 < 3r: at most two subtractions of r make it canonical
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    u32 d[kW], borrow;
-    sub_cc(d[0], x.w[0], c_rw[0]);
-#pragma unroll
-    for (int j = 1; j < kW; ++j) subc_cc(d[j], x.w[j], c_rw[j]);
-    subc(borrow, 0u, 0u);
-#pragma unroll
-    for (int j = 0; j < kW; ++j) x.w[j] = borrow ? x.w[j] : d[j];
-  }
-  mont(x, x, constant(c_r2w));
-  store(out, n, i, x);
+  return x;
 }
 
-__global__ void __launch_bounds__(kThreads)
-fr_from_mont_kernel(const u32* __restrict__ x, ulonglong2* __restrict__ rows, int n,
-                    int log_n) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  Fr one = {};
-  one.w[0] = 1;
-  Fr v = load(x, n, i);
-  mont(v, v, one);
-  const size_t row = bitrev(i, log_n);
-  rows[2 * row] = make_ulonglong2(v.w[0] | static_cast<uint64_t>(v.w[1]) << 32,
-                                  v.w[2] | static_cast<uint64_t>(v.w[3]) << 32);
-  rows[2 * row + 1] = make_ulonglong2(v.w[4] | static_cast<uint64_t>(v.w[5]) << 32,
-                                      v.w[6] | static_cast<uint64_t>(v.w[7]) << 32);
+__global__ void __launch_bounds__(kEntryThreads)
+fr_to_mont_kernel(const ulonglong2* __restrict__ rows, u32* __restrict__ out, int n) {
+  const size_t base = static_cast<size_t>(blockIdx.x) * kEntryThreads * kEntryPer;
+  const int q = threadIdx.x;
+  Fr x[kEntryPer];
+#pragma unroll
+  for (int j = 0; j < kEntryPer; ++j) {
+    const size_t i = base + j * kEntryThreads + q;
+    const bool in = i < static_cast<size_t>(n);
+    const ulonglong2 zero = make_ulonglong2(0, 0);
+    x[j] = row_words(in ? rows[2 * i] : zero, in ? rows[2 * i + 1] : zero);
+  }
+  const Fr r2 = constant(c_r2w);
+#pragma unroll
+  for (int j = 0; j < kEntryPer; ++j) {
+    // x < 2^256 < 3r: at most two subtractions of r make it canonical
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      u32 d[kW], borrow;
+      sub_cc(d[0], x[j].w[0], c_rw[0]);
+#pragma unroll
+      for (int k = 1; k < kW; ++k) subc_cc(d[k], x[j].w[k], c_rw[k]);
+      subc(borrow, 0u, 0u);
+#pragma unroll
+      for (int k = 0; k < kW; ++k) x[j].w[k] = borrow ? x[j].w[k] : d[k];
+    }
+    if (__any_sync(0xffffffffu, x[j].w[kW - 1] != 0))
+      mont(x[j], x[j], r2);
+    else
+      mont<true>(x[j], r2, x[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kEntryPer; ++j) {
+    const size_t i = base + j * kEntryThreads + q;
+    if (i < static_cast<size_t>(n)) store(out, n, i, x[j]);
+  }
+}
+
+// -- the exit --------------------------------------------------------------
+//
+// n = 2^k, index i = [a: top s bits][m: middle k - 2s bits][b: low s bits],
+// bitrev_k(i) = rev_s(b) 2^(k-s) + rev_{k-2s}(m) 2^s + rev_s(a).  CTA m
+// takes the 2^2s elements of one m: for each a the 2^s consecutive
+// elements over b (a warp reads runs of each word plane), reduces them and
+// stages their rows in shared memory in output order, slot rev_s(b) 2^s +
+// rev_s(a); then for each b the 2^s consecutive rows over rev_s(a), a run
+// of 2^s x 32 bytes, leave as 16-byte chunks, consecutive threads on
+// consecutive chunks, so a warp's store covers 512 contiguous bytes.  The
+// staging chunk of slot p, half h sits at (2 p + h) ^ (b & 7): the 8 lanes
+// of a quarter warp (consecutive b in the writes, one b in the reads) then
+// touch 8 distinct 16-byte bank groups.  s = min(kExitSideLog, k / 2).
+// One element a thread and s = 4 (256 threads, 8 KB) measured fastest: at
+// 2^18 0.0070 ms against 0.0086 for s = 5 and 4 elements a thread, whose
+// 256 CTAs left 16 warps an SM (the entry's reason).
+
+constexpr int kExitSideLog = 4;  // s: 2^2s elements a CTA (8 KB of rows at 4)
+constexpr int kExitPer = 1;      // elements a thread reduces
+constexpr int kExitTile = 1 << (2 * kExitSideLog);
+constexpr int kExitThreads = kExitTile / kExitPer;
+
+__global__ void __launch_bounds__(kExitThreads)
+fr_from_mont_kernel(const u32* __restrict__ x, uint4* __restrict__ rows, int n, int log_n,
+                    int s) {
+  __shared__ uint4 staged[2 * kExitTile];
+  const int count = 1 << (2 * s);
+  const int low = (1 << s) - 1;
+  const unsigned mid = blockIdx.x;
+  Fr v[kExitPer];
+#pragma unroll
+  for (int j = 0; j < kExitPer; ++j) {
+    const int e = threadIdx.x + j * kExitThreads;
+    if (e < count) {
+      const size_t i = (static_cast<size_t>(e >> s) << (log_n - s)) | (mid << s) | (e & low);
+      v[j] = load(x, n, i);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kExitPer; ++j) {
+    const int e = threadIdx.x + j * kExitThreads;
+    if (e < count) {
+      const int b = e & low;
+      redc(v[j], v[j]);
+      const int p = 2 * ((rev(b, s) << s) | rev(e >> s, s));
+      staged[p ^ (b & 7)] = make_uint4(v[j].w[0], v[j].w[1], v[j].w[2], v[j].w[3]);
+      staged[(p + 1) ^ (b & 7)] = make_uint4(v[j].w[4], v[j].w[5], v[j].w[6], v[j].w[7]);
+    }
+  }
+  __syncthreads();
+  const size_t middle = static_cast<size_t>(rev(mid, log_n - 2 * s)) << s;
+  for (int c = threadIdx.x; c < 2 * count; c += kExitThreads) {
+    const int rb = c >> (s + 1);  // rev_s(b) of the run
+    const size_t row = (static_cast<size_t>(rb) << (log_n - s)) | middle | ((c >> 1) & low);
+    rows[2 * row + (c & 1)] = staged[c ^ (rev(rb, s) & 7)];
+  }
 }
 
 // acc += the xor-partner lane's acc, every lane of the warp taking part
@@ -551,16 +681,20 @@ extern "C" {
 
 int fr_to_mont_launch(const void* rows, u32* out, int n, void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  fr_to_mont_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long per_block = static_cast<long>(kEntryThreads) * kEntryPer;
+  fr_to_mont_kernel<<<static_cast<int>((n + per_block - 1) / per_block), kEntryThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const ulonglong2*>(rows), out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// n = 2^log_n: row bitrev(i) <- element i
+// n = 2^log_n: row bitrev(i) <- element i; a CTA a tile of 2^2s elements
 int fr_from_mont_launch(const u32* x, void* rows, int n, int log_n, void* stream) {
   if (log_n < 1 || log_n > 30 || n != 1 << log_n) return static_cast<int>(cudaErrorInvalidValue);
-  fr_from_mont_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<ulonglong2*>(rows), n, log_n);
+  const int s = log_n / 2 < kExitSideLog ? log_n / 2 : kExitSideLog;
+  fr_from_mont_kernel<<<1 << (log_n - 2 * s), kExitThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(x, static_cast<uint4*>(rows), n,
+                                                             log_n, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,9 +17,13 @@ i]), from `to_mont_cuda` (host rows (n, 4) int64, the u64 limbs of any
 value below 2^256, reduced mod r) until `from_mont_cuda` (canonical
 standard rows (n, 4) int64).  Each wrapper:
 
-- `to_mont_cuda(rows)` -> planes (`fr_to_mont_kernel`);
+- `to_mont_cuda(rows)` -> planes (`fr_to_mont_kernel`: ENTRY_PER rows a
+  thread; in a warp whose 32 rows stay below word 7, a round's a b_i
+  skipped where they all have word i 0);
 - `from_mont_cuda(x)` -> rows, n = 2^k elements, row bitrev(i) (of k
-  bits) taking element i (`fr_from_mont_kernel`);
+  bits) taking element i (`fr_from_mont_kernel`: the Montgomery reduction
+  alone, a CTA a tile of 2^(2 s) elements, s = min(EXIT_SIDE_LOG, k // 2),
+  its rows staged in shared memory);
 - `spmv_cuda(row_ptr, cols, vals, z, n_out, ncopy=0, bins=, out=None)`
   -> (8, n_out), into `out` where given (a slice of the caller's buffer):
   out[row] = sum vals z[cols] over a CSR matrix of nrows = len(row_ptr) -
@@ -68,6 +72,10 @@ WORDS = 8
 TILE_LOG = 10       # a tile of fr_ntt_tile_kernel: 2^10 elements, 32 KB
 TILE_PER = 4        # elements a thread of the tile kernel holds
 SPMV_THREADS = 256  # threads a CTA of fr_spmv_kernel
+ENTRY_THREADS = 128  # threads a CTA of fr_to_mont_kernel
+ENTRY_PER = 1       # rows a thread of it converts
+EXIT_SIDE_LOG = 4   # fr_from_mont_kernel's s: a CTA a tile of 2^(2 s) elements
+EXIT_PER = 1        # elements a thread of it reduces
 MAX_LOG = 32        # columns of the squares table of powers_cuda
 MODE_BITREV, MODE_STAGE = 0, 1
 R_MONT = (1 << 256) % R

@@ -836,6 +836,77 @@ def test_fr_kernels_match_plain(cuda):
     assert torch.equal(fr.ntt(fr.ntt(x.clone(), tw_inv, True, ninv), tw, False), x)
 
 
+@pytest.mark.parametrize("log_n", list(range(1, 13)) + [17, 18, 21])
+def test_fr_exit_matches_plain(cuda, log_n):
+    """The exit (the Montgomery reduction alone, the rows through the
+    shared-memory tile) against its plain version word for word at every
+    k from 1 to 12 (tiles of s = k // 2, the middle 0 or 1 bits, up to s =
+    5) and at 17, 18 (the witness maps' domains) and 21 (prove_large's)."""
+    x = fr.to_mont_cuda.plain(_fr_rows(1 << log_n, 400 + log_n).to(cuda))
+    assert torch.equal(fr.from_mont_cuda(x), fr.from_mont_cuda.plain(x))
+
+
+FR_ENTRY_NS = [1, 31, 32, 33, 255, 1025, 158_773]
+
+
+def _fr_entry_rows(kind, n, seed):
+    """(n, 4) int64 rows: `edges`, _fr_rows' (0, 1, r - 1, r, 2r, 2^256 - 1,
+    then seeded full-width rows); `zeros and ones`; `one full-width a
+    warp`, `one 7-word row a warp`: rows of 0 and 1, and in each run of 32
+    rows g one seeded row of 8 words (the warp's straight-line product) or
+    of 7 (word 7 zero: the skip, every round but the last), at lane (g + g
+    // 8) mod 32, so that at n = 158,773 it stands at every lane of every
+    element slot of the kernel's threads."""
+    if kind == "edges":
+        return _fr_rows(n, seed)
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((n, 4), dtype=np.uint64)
+    rows[:, 0] = rng.integers(0, 2, n)
+    if kind != "zeros and ones":
+        g = np.arange(-(-n // 32))
+        at = 32 * g + (g + g // 8) % 32
+        at = at[at < n]
+        rows[at] = rng.integers(0, 2**64, size=(len(at), 4), dtype=np.uint64)
+        if kind == "one 7-word row a warp":
+            rows[at, 3] &= np.uint64(0xFFFFFFFF)
+    return torch.from_numpy(rows.view(np.int64))
+
+
+@pytest.mark.parametrize("kind", ["edges", "zeros and ones", "one full-width a warp",
+                                  "one 7-word row a warp"])
+@pytest.mark.parametrize("n", FR_ENTRY_NS)
+def test_fr_entry_matches_plain(cuda, n, kind):
+    """The entry (in a warp whose rows stay below word 7, a round's a b_i
+    skipped where its 32 rows have that word 0) against its plain version
+    word for word, at n around a warp, a CTA and the Falcon-1024 map's
+    158,773 rows; on edge values, rows of 0 and 1 (one round a warp), and
+    rows of 0 and 1 with one full-width or 7-word row a warp, which at
+    158,773 rows stands at every lane of every element slot."""
+    rows = _fr_entry_rows(kind, n, 500 + n).to(cuda)
+    assert torch.equal(fr.to_mont_cuda(rows), fr.to_mont_cuda.plain(rows))
+    if kind != "edges" and kind != "zeros and ones" and n == FR_ENTRY_NS[-1]:
+        per_cta = fr.ENTRY_THREADS * fr.ENTRY_PER
+        full = np.flatnonzero(rows.cpu().numpy()[:, 1:].any(axis=1))
+        within = full % per_cta
+        assert {(int(w) // fr.ENTRY_THREADS, int(w) % 32) for w in within} == {
+            (j, lane) for j in range(fr.ENTRY_PER) for lane in range(32)}
+
+
+def test_fr_entry_matches_plain_on_cell_b(cuda):
+    """The entry on cell B's z (Falcon-512, instance seed 5: 79,411 wires,
+    most of them 0 or 1) and on the u64 values of its A matrix (full-width
+    field elements, -1 among them: no round skipped), word for word."""
+    from falcon_r1cs_tpu_torch.r1cs.coo import compile_circuit
+    from falcon_r1cs_tpu_torch.tools.profile_prove import CIRCUIT, trace_assignment
+
+    inst = make_instance(np.random.default_rng(5), FALCON_512)
+    _, z = trace_assignment(inst)
+    a_vals = native_backend._compiled_cache(compile_circuit(CIRCUIT, inst, cache=False))["a"][2]
+    for host in (native_backend.z_rows(z), a_vals):
+        rows = torch.from_numpy(np.ascontiguousarray(host).view(np.int64)).to(cuda)
+        assert torch.equal(fr.to_mont_cuda(rows), fr.to_mont_cuda.plain(rows))
+
+
 @pytest.mark.parametrize("mean", [8.6, 1.33, 0.43])
 def test_fr_spmv_kernel_matches_plain(cuda, mean):
     """The sparse product at the mean row lengths of A, B and C of a

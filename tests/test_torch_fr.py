@@ -49,6 +49,10 @@ TILE_LOG = int(re.search(r"constexpr int kTileLog = (\d+);", SRC).group(1))
 PER_LOG = int(re.search(r"constexpr int kPerLog = (\d+);", SRC).group(1))
 PER = 1 << PER_LOG
 SPMV_THREADS = int(re.search(r"constexpr int kSpmvThreads = (\d+);", SRC).group(1))
+ENTRY_THREADS = int(re.search(r"constexpr int kEntryThreads = (\d+);", SRC).group(1))
+ENTRY_PER = int(re.search(r"constexpr int kEntryPer = (\d+);", SRC).group(1))
+EXIT_SIDE_LOG = int(re.search(r"constexpr int kExitSideLog = (\d+);", SRC).group(1))
+EXIT_PER = int(re.search(r"constexpr int kExitPer = (\d+);", SRC).group(1))
 # the exchange swizzle of csrc/fr_mont.cu swz(): index bit -> the bank bits it flips
 SWZ = {int(b): int(f, 16) for b, f in re.findall(r"\(\(e >> (\d)\) & 1\) \* 0x([0-9a-f]+)", SRC)}
 VALUES = [0, 1, 2, R - 1, R - 2, (R - 1) // 2, 1 << 254] + [
@@ -57,12 +61,14 @@ VALUES = [0, 1, 2, R - 1, R - 2, (R - 1) // 2, 1 << 254] + [
 
 def test_source_constants():
     """r's words, R'^2 mod r and n0' in csrc/fr_mont.cu equal those derived
-    from r; the tile, its elements a thread and the sparse product's CTA
-    of the .cu are the wrapper's; 2r fits 256 bits and 4r
-    does not (so nothing in the kernels is lazy)."""
+    from r; the tile, its elements a thread, the sparse product's CTA and
+    the entry's and exit's layouts of the .cu are the wrapper's; 2r fits
+    256 bits and 4r does not (so nothing in the kernels is lazy)."""
     assert RW == _words(R) and R2W == _words(pow(2, 512, R))
     assert RINV == (-pow(R, -1, 1 << 32)) % (1 << 32) == M32
     assert (TILE_LOG, PER, SPMV_THREADS) == (fr.TILE_LOG, fr.TILE_PER, fr.SPMV_THREADS)
+    assert (ENTRY_THREADS, ENTRY_PER, EXIT_SIDE_LOG, EXIT_PER) == (
+        fr.ENTRY_THREADS, fr.ENTRY_PER, fr.EXIT_SIDE_LOG, fr.EXIT_PER)
     assert 2 * R < 1 << 256 < 4 * R and 1 << 256 < 3 * R
     assert fr.R_MONT == (1 << 256) % R
 
@@ -70,35 +76,56 @@ def test_source_constants():
 # --- the transcription of csrc/fr_mont.cu -----------------------------------
 
 
-def mont(a, b):
+def _chain(t, steps):
+    """One PTX carry chain over the words t: each step t[dst] = add() +
+    the carry in, its carry out to the next; the last carry returned."""
+    cf = 0
+    for dst, add in steps:
+        s = add() + cf
+        t[dst], cf = s & M32, s >> 32
+    return cf
+
+
+def reduce_round(t):
+    """`reduce_round`: m = t_0 n0', t += lo(m r) (carry into t[8]), then t =
+    (t + hi(m r) one word up) / 2^32 written one word down; t[8] = 0."""
+    m = (t[0] * RINV) & M32
+    cf = _chain(t, [(j, lambda j=j: ((m * RW[j]) & M32) + t[j]) for j in range(8)])
+    assert t[0] == 0
+    t[8] += cf
+    assert t[8] <= M32
+    cf = _chain(t, [(j, lambda j=j: ((m * RW[j]) >> 32) + t[j + 1]) for j in range(8)])
+    assert cf == 0
+    t[8] = 0
+
+
+def mont(a, b, rounds=range(8)):
     """`mont` as the kernel computes it: per word b_i four PTX carry chains
     (mad.lo.cc / madc.lo.cc, addc, mad.hi.cc / madc.hi.cc, madc.hi), the
     last writing one word down (the shift), over t[0..8]; then t - r
-    unless that borrows."""
+    unless that borrows.  The a b_i chains run only in `rounds` (the word
+    skip: the rounds where some lane of the warp has b_i != 0); the
+    reduction round always runs."""
     t = [0] * 9
-
-    def chain(steps):
-        cf = 0
-        for dst, add in steps:
-            s = add() + cf
-            t[dst], cf = s & M32, s >> 32
-        return cf
-
     for i in range(8):
         bi = b[i]
-        cf = chain([(j, lambda j=j: ((a[j] * bi) & M32) + t[j]) for j in range(8)])
-        t[8] += cf
-        assert t[8] <= M32
-        cf = chain([(j + 1, lambda j=j: ((a[j] * bi) >> 32) + t[j + 1]) for j in range(8)])
-        assert cf == 0  # no carry out of t[8]
-        m = (t[0] * RINV) & M32
-        cf = chain([(j, lambda j=j: ((m * RW[j]) & M32) + t[j]) for j in range(8)])
-        assert t[0] == 0
-        t[8] += cf
-        assert t[8] <= M32
-        cf = chain([(j, lambda j=j: ((m * RW[j]) >> 32) + t[j + 1]) for j in range(8)])
-        assert cf == 0
-        t[8] = 0
+        if i in rounds:
+            cf = _chain(t, [(j, lambda j=j: ((a[j] * bi) & M32) + t[j]) for j in range(8)])
+            t[8] += cf
+            assert t[8] <= M32
+            cf = _chain(t, [(j + 1, lambda j=j: ((a[j] * bi) >> 32) + t[j + 1])
+                            for j in range(8)])
+            assert cf == 0  # no carry out of t[8]
+        reduce_round(t)
+    return cond_sub(t[:8], RW)
+
+
+def redc(v):
+    """`redc`: t = v's words, 8 reduction rounds, one conditional
+    subtraction of r."""
+    t = list(v) + [0]
+    for _ in range(8):
+        reduce_round(t)
     return cond_sub(t[:8], RW)
 
 
@@ -145,6 +172,25 @@ def entry(v):
     for _ in range(2):
         x = cond_sub(x, RW)
     return mont(x, R2W)
+
+
+def entry_warp(values):
+    """fr_to_mont_kernel on one warp's slot of 32 rows (the lanes past
+    `values` hold 0, as lanes past n do): each lane's x reduced twice; if
+    some lane's x has word 7 nonzero, the product x R'^2 of `entry`, every
+    round; else the product R'^2 x with x the b operand, whose round i runs
+    its a b_i chains only where some lane's x_i != 0 (the __any_sync
+    votes).  The lanes' words and the rounds that ran."""
+    xs = []
+    for v in list(values) + [0] * (32 - len(values)):
+        x = _words(v)
+        for _ in range(2):
+            x = cond_sub(x, RW)
+        xs.append(x)
+    if any(x[7] for x in xs):
+        return [mont(x, R2W) for x in xs[:len(values)]], list(range(8))
+    rounds = [i for i in range(7) if any(x[i] for x in xs)]
+    return [mont(R2W, x, rounds) for x in xs[:len(values)]], rounds
 
 
 def exit_row(i, log_n):
@@ -332,6 +378,138 @@ def test_transcribed_word_arithmetic():
     for v in VALUES + [R, 2 * R, (1 << 256) - 1]:
         assert _value(entry(v)) == v % R
         assert _int(mont(entry(v), [1] + [0] * 7)) == v % R  # the exit: canonical
+
+
+@pytest.mark.parametrize("v", [0, 1, R - 1, R, 2 * R, (1 << 256) - 1] + [
+    int.from_bytes(np.random.default_rng(500 + s).bytes(32), "little") for s in range(6)])
+def test_transcribed_reduction(v):
+    """The exit's reduction (`redc`: 8 rounds, one subtraction, no product)
+    is v 2^-256 mod r, canonical, for any v < 2^256, and below r equals
+    the product by 1 (`mont(x, 1)`, the exit before) word for word."""
+    w = _words(v)
+    assert _int(redc(w)) == v * RINV_MONT % R
+    if v < R:
+        assert redc(w) == mont(w, [1] + [0] * 7)
+
+
+def _top_zero(t, seed):
+    """A seeded value whose top t words are 0 and whose word 7 - t is not."""
+    if t == 8:
+        return 0
+    v = int.from_bytes(np.random.default_rng(seed).bytes(32), "little") >> (32 * t)
+    return v | 1 << (32 * (8 - t) - 1)
+
+
+ENTRY_CASES = [("0", 0), ("1", 1), ("r - 1", R - 1), ("r", R), ("2r", 2 * R),
+               ("2^256 - 1", (1 << 256) - 1)] + [
+    (f"top {t} words 0", _top_zero(t, 600 + t)) for t in range(9)] + [
+    (f"seeded {s}", int.from_bytes(np.random.default_rng(700 + s).bytes(32), "little"))
+    for s in range(4)]
+
+
+@pytest.mark.parametrize("name, v", ENTRY_CASES, ids=[c[0] for c in ENTRY_CASES])
+def test_transcribed_entry_word_skip(name, v):
+    """The word-skipping entry on a warp's 32 rows equals entry(v) (every
+    round's a b_i run) word for word, with v alone (the other lanes past
+    n), in every lane, at each lane among rows of 0 and 1, and beside a
+    seeded full-width row; in a warp whose reduced rows all stay below
+    word 7 the a b_i chains ran exactly for the words that some lane has
+    nonzero (a warp of 0s and 1s: word 0 only), in any other every round.
+    The product with x the b operand equals `entry`'s x R'^2 on every
+    canonical value."""
+    rng = np.random.default_rng(800)
+    ones = rng.integers(0, 2, 32).tolist()
+    full = int.from_bytes(rng.bytes(32), "little")
+    layouts = [[v], [v] * 32, [full, v]] + [ones[:lane] + [v] + ones[lane + 1:]
+                                              for lane in range(32)]
+    for vals in layouts:
+        got, rounds = entry_warp(vals)
+        assert got == [entry(u) for u in vals]
+        used = [i for i in range(8) if any(_words(u % R)[i] for u in vals)]
+        assert rounds == (list(range(8)) if 7 in used else used)
+    assert entry_warp(ones)[1] == [0] and entry_warp([0] * 32)[1] == []
+    if v < R:
+        assert mont(R2W, _words(v)) == entry(v)
+
+
+def _rev(x, bits):
+    """numpy: x with its low `bits` bits reversed (0 where bits is 0)."""
+    out = np.zeros_like(x)
+    for k in range(bits):
+        out |= ((x >> k) & 1) << (bits - 1 - k)
+    return out
+
+
+def exit_walk(log_n, side_log):
+    """fr_from_mont_kernel's index map as it walks, for s = min(side_log,
+    log_n // 2) and 2^(2 side_log) / EXIT_PER threads a CTA: CTA m's
+    thread q loads elements e = q + j threads < 2^(2 s) of its tile (a = e
+    >> s, b = e's low s bits, i = a 2^(k-s) + m 2^s + b) and stages their
+    halves at (2 (rev_s(b) 2^s + rev_s(a)) + h) ^ (b & 7); then thread q
+    stores chunks c = q, q + threads, ... < 2^(2s+1) of the staging at
+    chunk 2 row + (c & 1) of the output, row = rb 2^(k-s) + rev(m) 2^s +
+    (c >> 1 & low), rb = c >> (s + 1), read from c ^ (rev_s(rb) & 7).
+    Checks that the staging is a bijection and that the 8 lanes of each
+    quarter warp's 16-byte shared accesses hit 8 distinct bank groups;
+    that at full tiles a warp's loads are runs of 2^s consecutive elements
+    and a warp's stores one contiguous span (s >= 4).  Returns (n,) int32:
+    the row each element was written to."""
+    n = 1 << log_n
+    s = min(side_log, log_n // 2)
+    threads = (1 << (2 * side_log)) // EXIT_PER
+    count, low = 1 << (2 * s), (1 << s) - 1
+    e = np.arange(threads)[:, None] + threads * np.arange(EXIT_PER)[None, :]  # (q, j)
+    live = e < count
+    a, b = e >> s, e & low
+    slot = (_rev(b, s) << s) | _rev(a, s)
+    pos = [(2 * slot + h) ^ (b & 7) for h in (0, 1)]
+    for h in (0, 1):  # the staging writes: each instruction (j, h), quarter warps
+        for j in range(EXIT_PER):
+            for q0 in range(0, threads, 8):
+                got = pos[h][q0:q0 + 8, j][live[q0:q0 + 8, j]]
+                assert len(set((got % 8).tolist())) == len(got), (log_n, side_log, q0, j, h)
+    staged = np.full(2 * count, -1, dtype=np.int64)
+    for h in (0, 1):
+        staged[pos[h][live]] = 2 * e[live] + h  # element of the tile, half
+    assert (staged >= 0).all() and len(set(pos[0][live].tolist() + pos[1][live].tolist())) \
+        == 2 * count
+    c = np.arange(2 * count)
+    rb = c >> (s + 1)
+    read = c ^ (_rev(rb, s) & 7)
+    for c0 in range(0, 2 * count, 8):  # the staging reads, quarter warps
+        assert len(set((read[c0:c0 + 8] % 8).tolist())) == len(read[c0:c0 + 8])
+    te, half = staged[read] >> 1, staged[read] & 1
+    assert (half == (c & 1)).all()
+    mid = np.arange(1 << (log_n - 2 * s), dtype=np.int32)[:, None]
+    elem = ((te >> s) << (log_n - s)).astype(np.int32)[None, :] | (mid << s) | \
+        (te & low).astype(np.int32)[None, :]
+    row = (rb << (log_n - s)).astype(np.int32)[None, :] | \
+        (_rev(mid, log_n - 2 * s) << s) | ((c >> 1) & low).astype(np.int32)[None, :]
+    if s == side_log and s >= 4:
+        chunk = 2 * row[0] + (c & 1)
+        for c0 in range(0, 2 * count, 32):  # a warp's store: one span
+            assert (np.diff(chunk[c0:c0 + 32]) == 1).all()
+        loads = ((a << (log_n - s)) | b)[:, 0]
+        for q0 in range(0, threads, 32):  # a warp's load: runs of 2^s
+            runs = loads[q0:q0 + 32].reshape(-1, 1 << s)
+            assert (np.diff(runs, axis=1) == 1).all()
+    out = np.full(2 * n, -1, dtype=np.int32)
+    out[(2 * row + (c & 1)).ravel()] = elem.ravel()
+    assert (out[0::2] == out[1::2]).all()
+    return out[0::2]
+
+
+@pytest.mark.parametrize("side_log", [4, 5])
+@pytest.mark.parametrize("log_n", range(1, 23))
+def test_exit_tile_index_map(log_n, side_log):
+    """The exit's tile, walked as the kernel walks it (CTA, a, b, the row
+    written), writes every element once, element i at row bitrev(i)
+    (`exit_row`), at every k from 1 to 22 with s = 4 and s = 5."""
+    at_row = exit_walk(log_n, side_log)
+    want = _rev(np.arange(1 << log_n, dtype=np.int32), log_n)
+    assert (at_row[want] == np.arange(1 << log_n)).all()
+    if log_n <= 8:
+        assert at_row.tolist() == [exit_row(i, log_n) for i in range(1 << log_n)]
 
 
 @pytest.mark.parametrize("mode", [fr.MODE_BITREV, fr.MODE_STAGE])
