@@ -1850,8 +1850,9 @@ def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
     it, and A's short and long rows each alone), the round-trip tile over
     a, b and c (the DIF tile with h's scale, and the six single-form tiles
     that the round trip replaces, timed beside it), the widest DIF stage,
-    the quotient, the exit with the bit-reversed rows, the stage twiddles
-    of w.  The four redesigned kernels, the entry, the sparse product, the
+    the quotient, the exit with the bit-reversed rows; the power tables
+    (the stage twiddles of w, the bit-reversed scales of 5) at 2^17, 2^18
+    and 2^21.  The four redesigned kernels, the entry, the sparse product, the
     tile and the exit, also at cell B's Falcon-512 witness map (2^17;
     `witness512`, from `falcon512_witness`); the entry also on A's CSR
     values (full-width rows) at 2^18, with z's warps by their highest
@@ -1860,8 +1861,8 @@ def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
     of the wrapper and of the plain version, profiler device ms; bound:
     the bytes each must move (each input read once, each output written
     once) and its int32 multiplies (FR_MONT_MULS a product, the entry's
-    and the exit's too, whatever their kernels skip; the
-    twiddles' products counted from this run's exponents); ptxas and SM
+    and the exit's too, whatever their kernels skip; the power tables' a
+    distinct value, n / 2 twiddles or n scales); ptxas and SM
     residency.  The whole
     witness map by CUDA events and under the profiler, at both domains,
     rides in the entry's record.  `launches`: the groth16 path's prove
@@ -2008,10 +2009,6 @@ def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
     evals = [fr.spmv_cuda(*cache[m], zt, n, compiled.num_instance if m == "a" else 0,
                           bins=cache[f"{m}_bins"]) for m in "abc"]
     x = evals[0]
-    one = fr.planes_of([1], dev)
-    sq = fr.squares_of(dom.omega, dev)
-    e = fr.exponents(n, k, fr.MODE_STAGE)
-    popcount = sum(int(((e >> b) & 1).sum()) for b in range(k))
     cases = [
         ("fr_ntt_stage_kernel", fr.ntt_stage_cuda,
          lambda: (x.clone(), cache["tw_inv"], k - 1, True), 32 * (2 * n + n // 2),
@@ -2019,8 +2016,6 @@ def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
         ("fr_quotient_kernel", fr.quotient_cuda,
          lambda: (evals[0].clone(), *evals[1:], cache["zinv"]),
          32 * (4 * n + 1), 2 * FR_MONT_MULS * n, "fr_quotient_kernel", 256),
-        ("fr_powers_kernel", fr.powers_cuda, lambda: (sq, one, k, fr.MODE_STAGE),
-         32 * (n + fr.MAX_LOG + 1), FR_MONT_MULS * popcount, "fr_powers_kernel", 256),
     ]
     # the DIT forms, which three of the seven transforms run: held to their
     # plain versions, not timed
@@ -2048,6 +2043,41 @@ def fr_kernels_vs_plain(dev, launches, witness, witness512, build_log):
             name, source, replaces, launches[name], rec["err"], rec["ms"], rec["plain_ms"],
             nbytes, ops, device_ms=rec["device_ms"], **ptxas(build_log, mangled, threads),
             **extra))
+    # the power tables, both modes at cell B's domain, the Falcon-1024 map's
+    # and prove_large's, each with a random c: the stage twiddles of w, the
+    # bit-reversed scales of 5.  Bound: 32 bytes an element written and the
+    # 33 elements read, a product a distinct value (n / 2 twiddles, n
+    # scales), whatever the kernel does; beside it the square-and-multiply
+    # count (a product a set exponent bit) that bounded the form before.
+    rng = np.random.default_rng(23)
+    powers_at = {}
+    for kk in (17, 18, 21):
+        nn = 1 << kk
+        cc = fr.planes_of([int.from_bytes(rng.bytes(32), "little") % fr.R], dev)
+        for label, base, mode in (("stage", pow(5, (fr.R - 1) >> kk, fr.R), fr.MODE_STAGE),
+                                  ("bitrev", 5, fr.MODE_BITREV)):
+            args = (fr.squares_of(base, dev), cc, kk, mode)
+            distinct = nn // 2 if mode == fr.MODE_STAGE else nn
+            nbytes = 32 * (nn + fr.MAX_LOG + 1)
+            rec = timed(f"fr_powers_kernel {label}", fr.powers_cuda, args, lambda args=args: args,
+                        nbytes, FR_MONT_MULS * distinct, plain_reps=1 if kk > k else 3,
+                        kernel="fr_powers_kernel")
+            e = fr.exponents(nn, kk, mode)
+            steps = sum(int(((e >> b) & 1).sum()) for b in range(kk))
+            rec |= {"tile_s_t": fr.powers_tile(kk, mode), "steps": steps,
+                    "steps_bound_ms": bound(nbytes, FR_MONT_MULS * steps)[0]}
+            line(f"fr_powers_kernel {label} (s, t = {rec['tile_s_t']})", kk, rec)
+            log(f"  against the square-and-multiply count ({steps} products): bound "
+                f"{rec['steps_bound_ms']:.4f} ms, "
+                f"{100 * rec['steps_bound_ms'] / rec['device_ms']:.1f} % of it")
+            powers_at[f"{label} 2^{kk}"] = rec
+    sass = fr_sass("fr_powers_kernel")
+    log(f"fr_powers_kernel static SASS a thread (the tables and the element loop): {sass}")
+    pw = powers_at[f"stage 2^{k}"]
+    records.append(record(
+        "fr_powers_kernel", source, replaces, launches["fr_powers_kernel"], pw["err"], pw["ms"],
+        pw["plain_ms"], pw["nbytes"], pw["ops"], device_ms=pw["device_ms"],
+        **ptxas(build_log, "fr_powers_kernel", fr.POW_THREADS), sass=sass, at=powers_at))
     # the entry: z at both maps (above), A's CSR values at 2^18 (full-width,
     # no round skipped: 1 launch of 3 a new circuit)
     a_vals = torch.from_numpy(np.ascontiguousarray(

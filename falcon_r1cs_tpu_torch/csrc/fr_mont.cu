@@ -69,7 +69,9 @@
 // - fr_quotient_kernel: a = (a b - c) zinv elementwise, in place;
 // - fr_powers_kernel: c base^e(i) for the tables (e(i) = bitrev(i), or
 //   the stage twiddle exponent of index h + j: j n / 2h), from the
-//   squares base^(2^k), at most log2 n products a thread.
+//   squares base^(2^k): one product an element, H(a) L(b), from two small
+//   tables a CTA builds on chip; stage mode computes the top segment's n /
+//   2 values and writes the lower segments as its strides.
 // The transform is radix 2 with twiddle tables by stage, tw[h + j] =
 // w^(j n / 2h) for the butterflies of span 2h, so a warp's twiddle loads
 // coalesce: DIF takes natural order to bit-reversed, DIT bit-reversed to
@@ -237,9 +239,7 @@ __device__ __forceinline__ Fr constant(const u32 (&c)[kW]) {
   return v;
 }
 
-// i with its low `bits` >= 1 bits reversed
-__device__ __forceinline__ unsigned bitrev(unsigned i, int bits) { return __brev(i) >> (32 - bits); }
-// the same for `bits` >= 0
+// x with its low `bits` >= 0 bits reversed
 __device__ __forceinline__ unsigned rev(unsigned x, int bits) {
   return bits ? __brev(x) >> (32 - bits) : 0u;
 }
@@ -652,21 +652,184 @@ fr_quotient_kernel(u32* __restrict__ a, const u32* __restrict__ b,
   store(a, n, i, v);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// -- the power tables --------------------------------------------------------
+//
+// out[i] = c base^e(i), from squares[m] = base^(2^m).  Each value is read
+// off a source index x whose bit m stands for the factor base^(2^pos(m)):
+// bit-reversed mode, x = i and pos(m) = k - 1 - m (so the exponent is
+// bitrev(i)); stage mode, x = j < n / 2 and pos(m) = m (so the value is the
+// top segment's tw[n/2 + j] = c base^j).  A lower segment of the stage
+// table is a stride of the top one, tw[h + j'] = tw[n/2 + j' n / 2h], so
+// value x of stage mode is written at n/2 + x and at (n >> (z + 1)) + (x
+// >> z) for every z in 1 .. k - 1 with 2^z | x, and x = 0 at 0 as well:
+// every element once, and n / 2 products for the n elements.
+//
+// A CTA takes a tile of 2^(s + t) consecutive x, x = x0 + a 2^s + b, and
+// writes out[.] = H(a) L(b), one product an element, stored in natural
+// order (a warp's 32 stores of each word plane contiguous):
+// - L(b) = c times the factors of b's s bits, the same for every CTA;
+// - H(a) = G Hp(a): Hp(a) the factors of a's t bits (the same for every
+//   CTA), G those of x0's bits from s + t up (the CTA's own).
+// Each table is built on chip, so that no chain of dependent products is
+// long (a product is ~300 dependent instructions): phase 1, the leaves LA
+// (c and the low sa = ceil(s / 2) bits), LB (the other s - sa) and Hp, an
+// entry a thread, at most max(sa, t - 1) products each, while the last warp
+// multiplies G's factors in a shuffle tree, ceil(log2 popcount) levels;
+// phase 2, L(b) = LA LB and H(a) = G Hp(a), one product each; phase 3, the
+// elements.  Stage mode stages its even values in shared memory, and then
+// writes each level z of strides as one contiguous run, a warp's 32
+// stores at once, not a divergent loop over z an element.  At k = 18
+// that is at most 5 products deep, against up to 17
+// square-and-multiply steps a thread before; the tables take 9 warp-wide
+// products (3 for the leaves, 3 for G's tree, 3 for L and H) beside the 32
+// of a tile of 2^10's elements.  s = min(kPowLowLog, bits), t as large as
+// kPowHighLog allows with at least 2^kPowMinCtaLog tiles (bits = log2 of
+// the count of x: k, or k - 1 in stage mode), so that a table at 2^17 or
+// 2^18 fills the SMs in one wave (pow_tile).
+
+constexpr int kPowThreads = 256;
+constexpr int kPowLowLog = 6;     // s at most: a tile's low bits, the table L
+constexpr int kPowHighLog = 5;    // t at most: a tile's runs, the table H
+constexpr int kPowMinCtaLog = 8;  // t shrinks until the grid has 2^8 tiles
+constexpr int kPowLA = 1 << ((kPowLowLog + 1) / 2);
+constexpr int kPowLB = 1 << (kPowLowLog / 2);
+constexpr int kPowLeaves = kPowLA + kPowLB + (1 << kPowHighLog);
+constexpr int kPowTile = 1 << (kPowLowLog + kPowHighLog);
+static_assert(kPowLeaves <= kPowThreads - 32, "the leaves' threads overlap the last warp");
+
+// R' mod r: the Montgomery form of 1
+__constant__ u32 c_onew[kW] = {0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
+                               0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
+
+__device__ __forceinline__ Fr plane_at(u32 (*p)[kW], int j) {
+  Fr v;
+#pragma unroll
+  for (int k = 0; k < kW; ++k) v.w[k] = p[j][k];
+  return v;
+}
+
+__device__ __forceinline__ void plane_put(u32 (*p)[kW], int j, const Fr& v) {
+#pragma unroll
+  for (int k = 0; k < kW; ++k) p[j][k] = v.w[k];
+}
+
+__device__ __forceinline__ void column_put(u32 (*p)[1 << kPowLowLog], int j, const Fr& v) {
+#pragma unroll
+  for (int k = 0; k < kW; ++k) p[k][j] = v.w[k];
+}
+
+// base^(2^pos(m)) for source bit m
+__device__ __forceinline__ Fr pow_factor(const u32* __restrict__ squares, int m, int log_n,
+                                         int stage) {
+  return load(squares, kMaxLog, stage ? m : log_n - 1 - m);
+}
+
+__global__ void __launch_bounds__(kPowThreads)
 fr_powers_kernel(u32* __restrict__ out, const u32* __restrict__ squares,
-                 const u32* __restrict__ c, int n, int log_n, int stage) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  unsigned e = bitrev(i, log_n);
-  if (stage) {
-    const int lh = i ? 31 - __clz(i) : 0;
-    e = i ? static_cast<unsigned>(i - (1 << lh)) << (log_n - 1 - lh) : 0u;
+                 const u32* __restrict__ c, int n, int log_n, int stage, int s, int t) {
+  __shared__ u32 leaf[kPowLeaves][kW];            // LA, LB, Hp
+  __shared__ u32 lt[kW][1 << kPowLowLog];         // L, as planes: a warp reads 32 b
+  __shared__ u32 ht[1 << kPowHighLog][kW];        // H, each read by a whole warp
+  __shared__ u32 gt[1][kW];                       // G
+  __shared__ u32 staged[kW][kPowTile / 2 + kPowTile / 64];  // stage mode: even e's values
+  const int sa = (s + 1) / 2;
+  const int na = 1 << sa, nb = 1 << (s - sa), nh = 1 << t, count = 1 << (s + t);
+  const unsigned x0 = blockIdx.x << (s + t);
+  const int q = threadIdx.x;
+  // leaf q: LA entry q (from c), LB entry q - na, Hp entry q - na - nb
+  const bool la = q < na;
+  Fr v = la ? load(c, 1, 0) : constant(c_onew);
+  if (q < na + nb + nh) {
+    const int first = la ? 0 : q < na + nb ? sa : s;
+    const unsigned x = q - (la ? 0 : q < na + nb ? na : na + nb);
+    bool have = la;
+    for (unsigned rest = x; rest; rest &= rest - 1) {
+      const Fr f = pow_factor(squares, first + __ffs(rest) - 1, log_n, stage);
+      if (have)
+        mont(v, v, f);
+      else
+        v = f;
+      have = true;
+    }
+    plane_put(leaf, q, v);
   }
-  Fr v = load(c, 1, 0);
-  for (int k = 0; k < log_n; ++k) {
-    if ((e >> k) & 1u) mont(v, v, load(squares, kMaxLog, k));
+  if (q >= kPowThreads - 32) {
+    // G: lane l takes the factor of x0's l-th set bit from s + t, the
+    // others 1; round `step` multiplies by the lane step apart
+    const int lane = q & 31;
+    const unsigned hi = x0 >> (s + t);
+    const int p = __popc(hi);
+    if (lane < p) {
+      unsigned rest = hi;
+      for (int l = 0; l < lane; ++l) rest &= rest - 1;
+      v = pow_factor(squares, s + t + __ffs(rest) - 1, log_n, stage);
+    }
+    for (int step = 1; step < p; step <<= 1) {
+      Fr o;
+#pragma unroll
+      for (int k = 0; k < kW; ++k) o.w[k] = __shfl_xor_sync(0xffffffffu, v.w[k], step);
+      mont(v, v, o);
+    }
+    if (lane == 0) plane_put(gt, 0, v);
   }
-  store(out, n, i, v);
+  __syncthreads();
+  for (int j = q; j < (1 << s) + nh; j += kPowThreads) {
+    if (j < (1 << s)) {
+      mont(v, plane_at(leaf, j & (na - 1)), plane_at(leaf, na + (j >> sa)));
+      column_put(lt, j, v);
+    } else {
+      mont(v, plane_at(gt, 0), plane_at(leaf, na + nb + j - (1 << s)));
+      plane_put(ht, j - (1 << s), v);
+    }
+  }
+  __syncthreads();
+  const int low = (1 << s) - 1;
+  for (int e = q; e < count; e += kPowThreads) {
+    Fr l;
+#pragma unroll
+    for (int k = 0; k < kW; ++k) l.w[k] = lt[k][e & low];
+    mont(v, plane_at(ht, e >> s), l);
+    if (!stage) {
+      store(out, n, x0 + e, v);
+      continue;
+    }
+    store(out, n, (n >> 1) + x0 + e, v);
+    const int h = e >> 1;
+    if (!(e & 1)) {
+#pragma unroll
+      for (int k = 0; k < kW; ++k) staged[k][h + (h >> 5)] = v.w[k];
+    }
+  }
+  if (!stage) return;
+  // the strides: level z takes the count >> z values with 2^z | e (x0 is a
+  // multiple of count) to (n >> (z + 1)) + (x0 >> z) + u, a warp's 32 u
+  // contiguous; even e's value sits at h + (h >> 5), h = e / 2, which
+  // keeps a warp's reads at stride 2^(z - 1) on 32 banks up to z = 6
+  __syncthreads();
+  for (int z = 1; z <= s + t; ++z) {
+    for (int u = q; u < count >> z; u += kPowThreads) {
+      const int h = u << (z - 1);
+#pragma unroll
+      for (int k = 0; k < kW; ++k) v.w[k] = staged[k][h + (h >> 5)];
+      store(out, n, (n >> (z + 1)) + (x0 >> z) + u, v);
+    }
+  }
+  if (q == 0) {
+    // the levels above s + t hold x0's value alone, where 2^z | x0
+#pragma unroll
+    for (int k = 0; k < kW; ++k) v.w[k] = staged[k][0];
+    const int zmax = x0 ? min(__ffs(x0) - 1, log_n - 1) : log_n - 1;
+    for (int z = s + t + 1; z <= zmax; ++z) store(out, n, (n >> (z + 1)) + (x0 >> z), v);
+    if (!x0) store(out, n, 0, v);
+  }
+}
+
+// fr_powers_kernel's tile: s low bits, t run bits of `bits` = log2 of the
+// count of source indices
+void pow_tile(int bits, int& s, int& t) {
+  s = bits < kPowLowLog ? bits : kPowLowLog;
+  t = bits - s - kPowMinCtaLog;
+  t = t < 0 ? 0 : t > kPowHighLog ? kPowHighLog : t;
 }
 
 int blocks(long work) { return static_cast<int>((work + kThreads - 1) / kThreads); }
@@ -764,8 +927,11 @@ int fr_powers_launch(u32* out, const u32* squares, const u32* c, int n, int log_
                      void* stream) {
   if (log_n < 1 || log_n > 30 || n != 1 << log_n || stage < 0 || stage > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  fr_powers_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, squares, c, n, log_n, stage);
+  int s, t;
+  pow_tile(log_n - stage, s, t);
+  fr_powers_kernel<<<1 << (log_n - stage - s - t), kPowThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(out, squares, c, n, log_n, stage, s,
+                                                          t);
   return static_cast<int>(cudaGetLastError());
 }
 

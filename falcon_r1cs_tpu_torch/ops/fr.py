@@ -41,7 +41,10 @@ standard rows (n, 4) int64).  Each wrapper:
 - `quotient_cuda(a, b, c, zinv)`, in place: a = (a b - c) zinv
   (`fr_quotient_kernel`);
 - `powers_cuda(squares, c, log_n, mode)` -> c base^e(i), e(i) = bitrev(i)
-  or the stage twiddle exponent (`fr_powers_kernel`).
+  or the stage twiddle exponent (`fr_powers_kernel`: a CTA a tile of
+  2^(s + t) values, each H(a) L(b), one product, from two tables the CTA
+  builds; stage mode computes the top segment's n / 2 values and writes
+  the lower segments as its strides; `powers_tile` gives (s, t)).
 
 `ntt(x, tw, dif, scale=None)` is the whole radix-2 transform through the
 two NTT wrappers: DIF, natural order in, bit-reversed out, with the
@@ -77,6 +80,10 @@ ENTRY_PER = 1       # rows a thread of it converts
 EXIT_SIDE_LOG = 4   # fr_from_mont_kernel's s: a CTA a tile of 2^(2 s) elements
 EXIT_PER = 1        # elements a thread of it reduces
 MAX_LOG = 32        # columns of the squares table of powers_cuda
+POW_THREADS = 256   # threads a CTA of fr_powers_kernel
+POW_LOW_LOG = 6     # its s at most: a tile's low bits, the table L
+POW_HIGH_LOG = 5    # its t at most: a tile's runs, the table H
+POW_MIN_CTA_LOG = 8  # t shrinks until the grid has 2^8 tiles
 MODE_BITREV, MODE_STAGE = 0, 1
 R_MONT = (1 << 256) % R
 
@@ -341,6 +348,16 @@ def exponents(n: int, log_n: int, mode: int) -> torch.Tensor:
         lh += (i >> k > 0).long()
     e = (i - (1 << lh)) << (log_n - 1 - lh)
     return torch.where(i > 0, e, 0)
+
+
+def powers_tile(log_n: int, mode: int) -> tuple[int, int]:
+    """(s, t) of fr_powers_kernel's tiles (its launcher's pow_tile): a tile
+    2^s values wide (the table L) and 2^t runs long (the table H), over the
+    2^bits values the kernel computes (bits = log_n, or log_n - 1 in stage
+    mode), with at least 2^POW_MIN_CTA_LOG tiles where t can shrink."""
+    bits = log_n - (mode == MODE_STAGE)
+    s = min(bits, POW_LOW_LOG)
+    return s, max(0, min(bits - s - POW_MIN_CTA_LOG, POW_HIGH_LOG))
 
 
 def powers(squares, c, log_n: int, mode: int):

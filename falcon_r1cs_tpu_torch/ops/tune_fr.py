@@ -1,9 +1,9 @@
 """Variants of the witness map's redesigned Fr kernels, the transform
-tile, the sparse product, the entry and the exit, built side by side from
-`csrc/fr_mont.cu` and timed in turns on one CUDA card.
+tile, the sparse product, the entry, the exit and the power tables, built
+side by side from `csrc/fr_mont.cu` and timed in turns on one CUDA card.
 
     python -m falcon_r1cs_tpu_torch.ops.tune_fr [--out DIR] [--variants a,b]
-        [--families tile,spmv,exit,entry] [--form NAME=FILE ...]
+        [--families tile,spmv,exit,entry,powers] [--form NAME=FILE ...]
 
 Each variant is the committed source with one change, timed on the cases
 of its family:
@@ -13,7 +13,9 @@ of its family:
   threads a CTA; the entry 1 row a thread, 128 threads a CTA, the word
   skip on in warps whose rows stay below word 7, rows read as two 16-byte
   loads a thread; the exit a tile of 2^2s elements with s = 4, 1 element
-  a thread (256 threads);
+  a thread (256 threads); the power tables a tile of 2^(s + t) values, s
+  <= 6, t <= 5, at least 2^8 tiles (`fr.powers_tile`), stage mode's
+  strides written from its staged even values level by level;
 - NAME (every family, with --form NAME=FILE): the file given, e.g. the
   parent commit's `csrc/fr_mont.cu` (`git show <commit>:falcon_r1cs_tpu_torch/
   csrc/fr_mont.cu > build/parent_fr_mont.cu`, then `--form
@@ -31,7 +33,13 @@ of its family:
 - entry: `entry_per_2`, `entry_per_4` (rows a thread), `entry_256_threads`,
   `entry_no_skip` (every a b_i round in every warp: the parent's product),
   `entry_row_shuffle` (a warp reads its 32 rows as two contiguous 512-byte
-  spans and shuffles the words).
+  spans and shuffles the words);
+- powers: `pow_s5` (s <= 5: the table L of 32 values), `pow_t3`, `pow_t4`
+  (t <= 3, 4: tiles of at most 2^9, 2^10 values),
+  `pow_min_cta_7`, `pow_min_cta_9` (t shrinks until 2^7, 2^9 tiles),
+  `pow_512_threads`, `pow_copy_loop` (stage mode's strides written by
+  each element's thread, a divergent loop over z, not from the staged
+  values level by level).
 
 On one card, for each variant in order, then reversed, each case of its
 families: the round trip over three random vectors (DIF over w^-1, the
@@ -40,12 +48,13 @@ sparse product of the Falcon-512 (2^17) and Falcon-1024 (2^18)
 verify-with-NTT circuits on random z; the exit of random canonical planes
 at 2^17 and 2^18; the entry of cell B's z (Falcon-512, instance seed 5)
 and the Falcon-1024 map's z, and of the Falcon-1024 circuit's A values
-(full-width rows).  Each is held word for word to the plain version, then
+(full-width rows); the stage twiddles of w and the bit-reversed scales of
+5, each with a random c, at 2^17, 2^18 and 2^21.  Each is held word for word to the plain version, then
 timed: its median CUDA-event ms a call (20 samples of 5 calls) and its
 profiler device ms a launch (the kernel's rows of a window of 20 calls
 over the launches the window caught).  The static SASS counts (IMAD, all
-but NOP) of the entry and the exit of each variant are printed beside
-ptxas.  Needs nvcc and a card; builds under DIR (default build/tune_fr in
+but NOP) of the chosen families' entry, exit and power kernels of each
+variant are printed beside ptxas.  Needs nvcc and a card; builds under DIR (default build/tune_fr in
 the checkout).
 """
 
@@ -67,7 +76,7 @@ _SWZ8 = ("return e ^ (((e >> 5) & 1) * 0x04) ^ (((e >> 6) & 1) * 0x09) ^ "
          "(((e >> 7) & 1) * 0x12);")
 
 
-FAMILIES = ("tile", "spmv", "exit", "entry")
+FAMILIES = ("tile", "spmv", "exit", "entry", "powers")
 _EXIT_S = "constexpr int kExitSideLog = 4;"
 _EXIT_PER = "constexpr int kExitPer = 1;"
 _ENTRY_PER = "constexpr int kEntryPer = 1;"
@@ -114,6 +123,18 @@ _ENTRY_SHUFFLED_LOADS = """  Fr x[kEntryPer];
 """
 
 
+# fr_powers_kernel's stage-mode strides: what follows the direct store, up
+# to the end of the staged pass, and the per-element loop over z before it
+_POW_DIRECT = "    store(out, n, (n >> 1) + x0 + e, v);\n"
+_POW_LAST = "    if (!x0) store(out, n, 0, v);\n  }\n"
+_POW_COPY_LOOP = """    const unsigned x = x0 + e;
+    const int zmax = x ? min(__ffs(x) - 1, log_n - 1) : log_n - 1;
+    for (int z = 1; z <= zmax; ++z) store(out, n, (n >> (z + 1)) + (x >> z), v);
+    if (!x) store(out, n, 0, v);
+  }
+"""
+
+
 def variants(src: str, forms: dict | None = None) -> dict:
     """name -> (source text, the case families it is timed on); each
     transform must change the source."""
@@ -125,6 +146,13 @@ def variants(src: str, forms: dict | None = None) -> dict:
 
     def entry_per(per):
         return src.replace(_ENTRY_PER, f"constexpr int kEntryPer = {per};")
+
+    def pow_form(name, committed, value):
+        return src.replace(f"constexpr int kPow{name} = {committed};",
+                           f"constexpr int kPow{name} = {value};")
+
+    copies = src.index(_POW_DIRECT) + len(_POW_DIRECT)
+    copies_end = src.index(_POW_LAST, copies) + len(_POW_LAST)
 
     out = {
         "committed": (src, FAMILIES),
@@ -150,6 +178,13 @@ def variants(src: str, forms: dict | None = None) -> dict:
                                           "constexpr int kEntryThreads = 256;"), ("entry",)),
         "entry_no_skip": (src.replace(_ENTRY_VOTE, "true"), ("entry",)),
         "entry_row_shuffle": (src.replace(_ENTRY_LOADS, _ENTRY_SHUFFLED_LOADS), ("entry",)),
+        "pow_s5": (pow_form("LowLog", 6, 5), ("powers",)),
+        "pow_t3": (pow_form("HighLog", 5, 3), ("powers",)),
+        "pow_t4": (pow_form("HighLog", 5, 4), ("powers",)),
+        "pow_min_cta_7": (pow_form("MinCtaLog", 8, 7), ("powers",)),
+        "pow_min_cta_9": (pow_form("MinCtaLog", 8, 9), ("powers",)),
+        "pow_512_threads": (pow_form("Threads", 256, 512), ("powers",)),
+        "pow_copy_loop": (src[:copies] + _POW_COPY_LOOP + src[copies_end:], ("powers",)),
     }
     for name, text in (forms or {}).items():
         out[name] = (text, FAMILIES)
@@ -157,23 +192,26 @@ def variants(src: str, forms: dict | None = None) -> dict:
     return out
 
 
-def device_ms(fn, kernel: str, calls: int = 20) -> float:
+def device_ms(fn, kernel: str, calls: int = 20, tries: int = 5) -> float:
     """Profiler device ms a launch: the rows of kernels whose names hold
-    `kernel`, over the launches of them the window caught."""
+    `kernel`, over the launches of them the window caught; a window that
+    caught none (the profiler drops records, PERF.md section 7) is taken
+    again, up to `tries` windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    caught = sum(e.count for e in rows)
-    if not caught:
-        raise RuntimeError(f"the profiler caught no launch of {kernel}")
-    return sum(e.self_device_time_total for e in rows) / 1e3 / caught
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        caught = sum(e.count for e in rows)
+        if caught:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / caught
+    raise RuntimeError(f"the profiler caught no launch of {kernel} in {tries} windows")
 
 
 def tile_case(log_n: int, dev):
@@ -310,10 +348,44 @@ def entry_case(params, dev):
     return cases
 
 
-def print_entry_exit_sass(so: Path, name: str) -> None:
-    """The static SASS counts (IMAD, all but NOP) of the entry and the exit."""
+def powers_case(log_n: int, dev):
+    """kind -> (launch(lib), check(lib), kernel) of the stage twiddles of w
+    (order 2^log_n) and the bit-reversed scales of 5, each with a random c."""
+    n = 1 << log_n
+    rng = np.random.default_rng(log_n)
+    cases = {}
+    for kind, base, mode in ((f"stage{log_n}", pow(5, (fr.R - 1) >> log_n, fr.R),
+                              fr.MODE_STAGE), (f"bitrev{log_n}", 5, fr.MODE_BITREV)):
+        sq = fr.squares_of(base, dev)
+        c = fr.planes_of([int.from_bytes(rng.bytes(32), "little") % fr.R], dev)
+        want = fr.powers(sq, c, log_n, mode)
+        out = torch.empty_like(want)
+
+        def launch(lib, sq=sq, c=c, out=out, mode=mode):
+            rc = lib.fr_powers_launch(out.data_ptr(), sq.data_ptr(), c.data_ptr(), n, log_n,
+                                      mode, torch.cuda.current_stream().cuda_stream)
+            _build.check_launch(rc, "fr_powers_launch")
+
+        def check(lib, launch=launch, out=out, want=want):
+            out.zero_()
+            launch(lib)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want)
+
+        cases[kind] = (launch, check, "fr_powers_kernel")
+    return cases
+
+
+_SASS_KERNELS = {"exit": "fr_from_mont_kernel", "entry": "fr_to_mont_kernel",
+                 "powers": "fr_powers_kernel"}
+
+
+def print_sass(so: Path, name: str, families) -> None:
+    """The static SASS counts (IMAD, all but NOP) of the entry, the exit
+    and the power kernel, those of `families`."""
+    wanted = [_SASS_KERNELS[f] for f in families if f in _SASS_KERNELS]
     for kernel, ops in _build.sass_counts(so).items():
-        if "fr_to_mont_kernel" in kernel or "fr_from_mont_kernel" in kernel:
+        if any(w in kernel for w in wanted):
             print(f"{name}: SASS {kernel}: IMAD {ops['IMAD']}, issued "
                   f"{sum(v for k, v in ops.items() if k != 'NOP')}")
 
@@ -339,16 +411,17 @@ def main():
              and set(fams) & set(families)}
     libs = build_variants(root, "fr_mont.cu", {name: text for name, (text, _) in forms.items()},
                           ("fr_ntt_tile_launch", "fr_spmv_launch", "fr_to_mont_launch",
-                           "fr_from_mont_launch"))
-    if {"exit", "entry"} & set(families):
-        for name in libs:
-            print_entry_exit_sass(root / name / "lib.so", name)
+                           "fr_from_mont_launch", "fr_powers_launch"))
+    for name in libs:
+        print_sass(root / name / "lib.so", name, families)
     print(card_name())
     dev = torch.device("cuda")
     makers = {"tile": lambda: {**tile_case(17, dev), **tile_case(18, dev)},
               "spmv": lambda: {**spmv_case(FALCON_512, dev), **spmv_case(FALCON_1024, dev)},
               "exit": lambda: {**exit_case(17, dev), **exit_case(18, dev)},
-              "entry": lambda: {**entry_case(FALCON_512, dev), **entry_case(FALCON_1024, dev)}}
+              "entry": lambda: {**entry_case(FALCON_512, dev), **entry_case(FALCON_1024, dev)},
+              "powers": lambda: {**powers_case(17, dev), **powers_case(18, dev),
+                                 **powers_case(21, dev)}}
     cases = {kind: (*case, family) for family in families
              for kind, case in makers[family]().items()}
     res = {}

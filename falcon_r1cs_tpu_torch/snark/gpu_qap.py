@@ -28,7 +28,8 @@ Cached on the compiled circuit, per device (`_gpu_qap_cache`, as
 C (values converted by `to_mont_cuda`, one launch a matrix) and the bins
 of their rows by length (`fr.spmv_order`, key "a_bins" beside "a"), the
 stage twiddles of w and w^-1 and the two scale tables (`powers_cuda`, one
-launch each), and Z^-1.  A warm call launches 8 + 7 (k - 10) kernels at
+launch each: a CTA builds two small tables of powers and takes one
+product an element), and Z^-1.  A warm call launches 8 + 7 (k - 10) kernels at
 k >= 10 (57 at k = 17, 64 at k = 18, 85 at k = 21): the entry, three
 sparse products, the round-trip tile, the quotient, h's last tile, the
 exit and 7 (k - 10) wide stages; it reads 32 bytes back: the top

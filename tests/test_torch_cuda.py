@@ -799,6 +799,12 @@ def _fr_planes(n, seed, device):
     return fr.to_mont_cuda.plain(_fr_rows(n, seed)).to(device)
 
 
+def _fr_value(seed, device):
+    """(8, 1) planes of one random value mod r (_fr_planes(1) is 0)."""
+    rng = np.random.default_rng(seed)
+    return fr.planes_of([int.from_bytes(rng.bytes(32), "little") % fr.R], device)
+
+
 def test_fr_kernels_match_plain(cuda):
     """The entry, exit, pointwise, power-table and transform kernels at
     2^17 against their plain versions on the same tensors of the card,
@@ -809,7 +815,7 @@ def test_fr_kernels_match_plain(cuda):
     assert torch.equal(x, fr.to_mont_cuda.plain(rows))
     assert torch.equal(fr.from_mont_cuda(x), fr.from_mont_cuda.plain(x))
     b, c = _fr_planes(n, 71, cuda), _fr_planes(n, 72, cuda)
-    zinv = _fr_planes(1, 73, cuda)
+    zinv = _fr_value(73, cuda)
     assert torch.equal(fr.quotient_cuda(x.clone(), b, c, zinv),
                        fr.quotient_cuda.plain(x.clone(), b, c, zinv))
     one = fr.planes_of([1], cuda)
@@ -844,6 +850,23 @@ def test_fr_exit_matches_plain(cuda, log_n):
     5) and at 17, 18 (the witness maps' domains) and 21 (prove_large's)."""
     x = fr.to_mont_cuda.plain(_fr_rows(1 << log_n, 400 + log_n).to(cuda))
     assert torch.equal(fr.from_mont_cuda(x), fr.from_mont_cuda.plain(x))
+
+
+@pytest.mark.parametrize("base", ["w", "g = 5"])
+@pytest.mark.parametrize("mode", [fr.MODE_BITREV, fr.MODE_STAGE])
+@pytest.mark.parametrize("log_n", list(range(1, 14)) + [17, 18, 21])
+def test_fr_powers_matches_plain(cuda, log_n, mode, base):
+    """The power tables (a CTA's tables of powers, one product an element;
+    stage mode's lower segments as strides of the top one) against their
+    plain version word for word, c != 1, for the root of unity w of order
+    2^k (the twiddles) and the coset base 5 (the scales), at every k from 1
+    to 13 (tiles from one value to 2^10 values, one CTA to 16) and at 17,
+    18 (the witness maps' domains) and 21 (prove_large's)."""
+    b = pow(5, (fr.R - 1) >> log_n, fr.R) if base == "w" else 5
+    sq = fr.squares_of(b, cuda)
+    c = _fr_value(500 + log_n, cuda)
+    got = fr.powers_cuda(sq, c, log_n, mode)
+    assert torch.equal(got, fr.powers_cuda.plain(sq, c, log_n, mode))
 
 
 FR_ENTRY_NS = [1, 31, 32, 33, 255, 1025, 158_773]

@@ -53,6 +53,8 @@ ENTRY_THREADS = int(re.search(r"constexpr int kEntryThreads = (\d+);", SRC).grou
 ENTRY_PER = int(re.search(r"constexpr int kEntryPer = (\d+);", SRC).group(1))
 EXIT_SIDE_LOG = int(re.search(r"constexpr int kExitSideLog = (\d+);", SRC).group(1))
 EXIT_PER = int(re.search(r"constexpr int kExitPer = (\d+);", SRC).group(1))
+POW = {name: int(re.search(rf"constexpr int kPow{name} = (\d+);", SRC).group(1))
+       for name in ("Threads", "LowLog", "HighLog", "MinCtaLog")}
 # the exchange swizzle of csrc/fr_mont.cu swz(): index bit -> the bank bits it flips
 SWZ = {int(b): int(f, 16) for b, f in re.findall(r"\(\(e >> (\d)\) & 1\) \* 0x([0-9a-f]+)", SRC)}
 VALUES = [0, 1, 2, R - 1, R - 2, (R - 1) // 2, 1 << 254] + [
@@ -60,17 +62,21 @@ VALUES = [0, 1, 2, R - 1, R - 2, (R - 1) // 2, 1 << 254] + [
 
 
 def test_source_constants():
-    """r's words, R'^2 mod r and n0' in csrc/fr_mont.cu equal those derived
-    from r; the tile, its elements a thread, the sparse product's CTA and
-    the entry's and exit's layouts of the .cu are the wrapper's; 2r fits
+    """r's words, R'^2 mod r, R' mod r and n0' in csrc/fr_mont.cu equal those
+    derived from r; the tile, its elements a thread, the sparse product's
+    CTA, the entry's and exit's layouts and the power tables' tile
+    constants of the .cu are the wrapper's; 2r fits
     256 bits and 4r does not (so nothing in the kernels is lazy)."""
     assert RW == _words(R) and R2W == _words(pow(2, 512, R))
     assert RINV == (-pow(R, -1, 1 << 32)) % (1 << 32) == M32
     assert (TILE_LOG, PER, SPMV_THREADS) == (fr.TILE_LOG, fr.TILE_PER, fr.SPMV_THREADS)
     assert (ENTRY_THREADS, ENTRY_PER, EXIT_SIDE_LOG, EXIT_PER) == (
         fr.ENTRY_THREADS, fr.ENTRY_PER, fr.EXIT_SIDE_LOG, fr.EXIT_PER)
+    assert (POW["Threads"], POW["LowLog"], POW["HighLog"], POW["MinCtaLog"]) == (
+        fr.POW_THREADS, fr.POW_LOW_LOG, fr.POW_HIGH_LOG, fr.POW_MIN_CTA_LOG)
     assert 2 * R < 1 << 256 < 4 * R and 1 << 256 < 3 * R
     assert fr.R_MONT == (1 << 256) % R
+    assert _table("c_onew") == _words(fr.R_MONT)
 
 
 # --- the transcription of csrc/fr_mont.cu -----------------------------------
@@ -529,6 +535,152 @@ def test_power_exponents(mode, log_n):
                 assert want[h:2 * h] == [j * n // (2 * h) for j in range(h)]
 
 
+def powers_walk(log_n, mode, s, t, facs, one, c, mul, threads=POW["Threads"]):
+    """fr_powers_kernel as it runs, over any product `mul` (on scalars and
+    numpy arrays) of elements: facs[p] stands for base^(2^p), `one` for 1,
+    `c` for c.  Source index x (i, or j < n / 2 in stage mode) has bit m
+    for the factor pos(m) (k - 1 - m, or m).  CTA x0 >> (s + t): phase 1,
+    leaf q a thread (LA from c over bits [0, sa), LB over [sa, s), Hp over
+    [s, s + t), the first factor taken without a product), G in the last
+    warp (lane l the factor of x0's l-th set bit from s + t, else 1; round
+    `step` multiplies by lane l ^ step while step < popcount); phase 2, L(b)
+    = LA LB, H(a) = G Hp(a); phase 3, thread q's elements e = q, q +
+    threads, ..., value H(e >> s) L(e & low) written at x (bit-reversed
+    mode) or at n/2 + x (stage mode); stage mode then writes, for z in 1
+    .. s + t, the values of e = u 2^z (staged at h + (h >> 5), h = e / 2)
+    at (n >> (z + 1)) + (x0 >> z) + u, and thread 0 x0's value at the
+    levels z > s + t with 2^z | x0 (x0 = 0: up to k - 1, and at 0).
+    Checks that each warp's elements are 32 consecutive x (contiguous
+    stores) reading 32 distinct L columns and one H row (s >= 5), and that
+    a warp's staged reads hit 32 banks up to z = 6.  Returns (out (n,),
+    written (n,) counts)."""
+    n = 1 << log_n
+    stage = mode == fr.MODE_STAGE
+    bits = log_n - stage
+    assert 0 <= s and 0 <= t and s + t <= bits
+
+    def pos(m):
+        return m if stage else log_n - 1 - m
+
+    sa = (s + 1) // 2
+    na, nb, nh = 1 << sa, 1 << (s - sa), 1 << t
+    assert na + nb + nh <= threads - 32  # the leaves' threads leave the last warp to G
+    leaves = []
+    for q in range(na + nb + nh):
+        first, x, have = ((0, q, True) if q < na else (sa, q - na, False) if q < na + nb
+                          else (s, q - na - nb, False))
+        v = c if have else one
+        for m in range(x.bit_length()):
+            if x >> m & 1:
+                f = facs[pos(first + m)]
+                v = mul(v, f) if have else f
+                have = True
+        leaves.append(v)
+    grid = 1 << (bits - s - t)
+    hi = np.arange(grid)
+    count = np.array([bin(h).count("1") for h in range(grid)])
+    dtype = np.asarray(facs).dtype if len(facs) else object
+    lanes, rest = [], hi.copy()
+    for lane in range(32):
+        low_bit = rest & -rest
+        m = np.array([int(b).bit_length() - 1 for b in low_bit])
+        lanes.append(np.array([facs[pos(s + t + mm)] if lane < cnt else one
+                               for mm, cnt in zip(m, count)], dtype=dtype))
+        rest = rest & (rest - 1)
+    step = 1
+    while step < count.max(initial=0):
+        lanes = [np.where(step < count, mul(lanes[lane], lanes[lane ^ step]), lanes[lane])
+                 for lane in range(32)]
+        step <<= 1
+    g = lanes[0]
+    la, lb, hp = leaves[:na], leaves[na:na + nb], leaves[na + nb:]
+    lt = np.array([mul(la[b & (na - 1)], lb[b >> sa]) for b in range(1 << s)], dtype=dtype)
+    ht = np.stack([mul(g, hp[a]) for a in range(nh)], axis=1)  # (grid, nh)
+    vals = mul(ht[:, :, None], lt[None, None, :]).reshape(-1)
+    tile = 1 << (s + t)
+    for e0 in range(0, min(tile, threads), 32):  # a warp's e, every pass of its loop
+        for e in range(e0, tile, threads):
+            warp = np.arange(e, min(e + 32, tile))
+            assert (np.diff(warp) == 1).all()
+            if s >= 5:
+                assert len(set((warp >> s).tolist())) == 1
+                assert len(set((warp & ((1 << s) - 1)).tolist())) == len(warp)
+    x = np.arange(len(vals))
+    writes = [(x, vals)]
+    if stage:
+        writes = [((n >> 1) + x, vals), (np.array([0]), vals[:1])]
+        tiles, x0 = vals.reshape(grid, tile), np.arange(grid) * tile
+        for z in range(1, s + t + 1):  # each level of strides from the staged even values
+            u = np.arange(tile >> z)
+            h = u << (z - 1)  # staged slot h + (h >> 5) holds e = 2 h
+            if z <= 6:
+                for u0 in range(0, len(u), 32):
+                    banks = ((h + (h >> 5))[u0:u0 + 32] % 32).tolist()
+                    assert len(set(banks)) == len(banks)
+            writes.append((((n >> (z + 1)) + (x0[:, None] >> z) + u[None, :]).ravel(),
+                           tiles[:, 2 * h].ravel()))
+        for z in range(s + t + 1, log_n):  # thread 0: x0's value where 2^z | x0
+            sel = x0 % (1 << z) == 0
+            writes.append(((n >> (z + 1)) + (x0[sel] >> z), tiles[sel, 0]))
+    out = np.empty(n, dtype=vals.dtype)
+    written = np.zeros(n, dtype=np.int64)
+    for idx, v in writes:
+        out[idx] = v
+        np.add.at(written, idx, 1)
+    return out, written
+
+
+def _disjoint_or(a, b):
+    """The product of factor sets as bit masks, each factor at most once."""
+    assert not np.any(np.asarray(a) & np.asarray(b))
+    return a | b
+
+
+def _depth(a, b):
+    return np.maximum(a, b) + 1
+
+
+def _power_walk_checks(log_n, mode, s, t):
+    """Every element written once; the factors of each, every one at most
+    once, are those of fr.exponents; c in each once.  Returns the longest
+    chain of dependent products."""
+    n = 1 << log_n
+    facs = np.array([1 << p for p in range(log_n)], dtype=np.int64)
+    got, written = powers_walk(log_n, mode, s, t, facs, 0, 0, _disjoint_or)
+    assert (written == 1).all()
+    assert np.array_equal(got, fr.exponents(n, log_n, mode).numpy())
+    cs, _ = powers_walk(log_n, mode, s, t, np.zeros(log_n, dtype=np.int64), 0, 1, np.add)
+    assert (cs == 1).all()
+    depth, _ = powers_walk(log_n, mode, s, t, np.zeros(log_n, dtype=np.int64), 0, 0, _depth)
+    return int(depth.max())
+
+
+@pytest.mark.parametrize("mode", [fr.MODE_BITREV, fr.MODE_STAGE])
+@pytest.mark.parametrize("log_n", range(1, 23))
+def test_power_tile_walk(log_n, mode):
+    """fr_powers_kernel walked as it runs at the tile its launcher picks
+    (`fr.powers_tile`): at every k from 1 to 22 each element is written
+    once, from one product of two table entries whose factors are those of
+    its exponent; no chain of dependent products is longer than 5 up to
+    2^18 (the witness maps' domains) and 6 up to 2^22."""
+    s, t = fr.powers_tile(log_n, mode)
+    bits = log_n - (mode == fr.MODE_STAGE)
+    assert s == min(bits, fr.POW_LOW_LOG) and 0 <= t <= fr.POW_HIGH_LOG
+    assert bits - s - t >= min(fr.POW_MIN_CTA_LOG, bits - s)  # tiles enough to fill a wave
+    assert _power_walk_checks(log_n, mode, s, t) <= (5 if log_n <= 18 else 6)
+
+
+@pytest.mark.parametrize("mode", [fr.MODE_BITREV, fr.MODE_STAGE])
+@pytest.mark.parametrize("log_n", [9, 12])
+def test_power_tile_walk_every_form(log_n, mode):
+    """The same at every (s, t) with s <= 6 and t <= 5 that fits the
+    source bits: the forms ops/tune_fr.py builds are all correct."""
+    bits = log_n - (mode == fr.MODE_STAGE)
+    for s in range(min(bits, 6) + 1):
+        for t in range(min(bits - s, 5) + 1):
+            _power_walk_checks(log_n, mode, s, t)
+
+
 def _mont_int(v):
     return v * (1 << 256) % R
 
@@ -544,6 +696,27 @@ def _stage_table(w, log_n):
 def _randoms(n, seed):
     rng = np.random.default_rng(seed)
     return [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+
+
+@pytest.mark.parametrize("base", ["random", "root of unity"])
+@pytest.mark.parametrize("mode", [fr.MODE_BITREV, fr.MODE_STAGE])
+@pytest.mark.parametrize("log_n", range(1, 9))
+def test_power_tile_values(log_n, mode, base):
+    """The walk's values in Montgomery integers (each product imont), c !=
+    1 and a base that is not a root of unity (or w of order 2^k), equal
+    the plain fr.powers."""
+    b = VALUES[30] if base == "random" else root_of_unity(log_n)
+    c = VALUES[31]
+    if base == "random":
+        assert pow(b, 1 << 32, R) != 1
+    s, t = fr.powers_tile(log_n, mode)
+    facs = np.array([_mont_int(pow(b, 1 << p, R)) for p in range(log_n)], dtype=object)
+    got, written = powers_walk(log_n, mode, s, t, facs, _mont_int(1), _mont_int(c),
+                               np.frompyfunc(imont, 2, 1))
+    assert (written == 1).all()
+    want = fr.values_of(fr.powers(fr.squares_of(b, "cpu"), _planes([c]), log_n, mode))
+    assert [_ival(v) for v in got] == want
+    assert want == [c * pow(b, exponent(i, log_n, mode), R) % R for i in range(1 << log_n)]
 
 
 @pytest.mark.parametrize("log_n", [3, 11])
