@@ -11,7 +11,8 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
 - the schoolbook path: 128 signatures -> circuit_witness engine + packer
   (1,150,004 witnesses of 8 limbs each) -> CRT verdict plus field rows;
 - the Groth16 path: one signature of the main path's batch -> its packed
-  witness as prover scalars -> `prove(g1_backend="gpu")`, whose witness
+  witness as prover scalars -> `prove()` at its defaults (g1_backend
+  "auto" on the CUDA msm_device: "gpu"), whose witness
   map (domain 2^18) runs on the Fr kernels and whose four G1 MSMs (n_pad
   = 2^18) run on the recode, Fq and merge-level kernels, against the
   native C prover with the same r and s; h from the card against the
@@ -25,9 +26,10 @@ Drives the port's paths once on one CUDA card at full Falcon-1024 width:
   signatures with three rows tampered, its verdicts equal to its CPU run;
 - the user entry points: `python -m falcon_r1cs_tpu_torch` in-process
   (`selftest`, `verify 1024`, `aggregate --n 1024 --k 1024`, `pok-sig
-  1024 --g1-backend gpu`, `aggregate --n 1024 --k 8 --prove 2
-  --g1-backend gpu`), each exit code 0, aggregate and pok-sig launching
-  K1 and the two gpu proofs K4, K5 and K6; and `entry()`'s step;
+  1024`, `aggregate --n 1024 --k 8 --prove 2`), each exit code 0,
+  aggregate and pok-sig launching K1, and the two proving commands, at
+  their default backend, the recode, K4, K5, K6, the merge level and the
+  six Fr kernels of a warm witness map; and `entry()`'s step;
 - the parallel layer at world size 1 over NCCL, in-process: the DP,
   dual and schoolbook sharded engines on the main, dual and schoolbook
   batches, gathered equal to the single-device engines (K1 2 and 4, K3
@@ -121,9 +123,16 @@ LARGE_BATCH_K = 2
 # the tools phase's batch (tools.prove_batch, Falcon-512)
 TOOLS_BATCH_K = 4
 # the CLI phase's commands, run in-process on the card (the default device)
+# (the two that prove at their default backend, which is the card's)
 CLI_COMMANDS = (["selftest"], ["verify", "1024"], ["aggregate", "--n", "1024", "--k", "1024"],
-                ["pok-sig", "1024", "--g1-backend", "gpu"],
-                ["aggregate", "--n", "1024", "--k", "8", "--prove", "2", "--g1-backend", "gpu"])
+                ["pok-sig", "1024"], ["aggregate", "--n", "1024", "--k", "8", "--prove", "2"])
+# the kernels a prove on the card launches: the G1 MSMs' (K4 where a CRS
+# is converted, as each command's fresh proving key is) and a warm
+# witness map's
+PROVE_KERNELS = ("signed_digits_kernel", "mont_mul_kernel", "point_add_kernel",
+                 "point_add_aff_kernel", "bucket_level_kernel", "fr_to_mont_kernel",
+                 "fr_spmv_kernel", "fr_ntt_tile_kernel", "fr_ntt_stage_kernel",
+                 "fr_quotient_kernel", "fr_from_mont_kernel")
 
 # NVIDIA H100 SXM data sheet: 3.35 TB/s of HBM3; 67 TFLOP/s fp32 outside the
 # tensor cores = 132 SMs x 128 fp32 lanes x 2 x 1.98 GHz.  An SM has 64 int32
@@ -577,7 +586,8 @@ def device_kernel_ms(fn, keep=("point_add",)):
 def groth16_path(port, dev, compiled, packed, instance, counted):
     """One Falcon-1024 verify-with-NTT proof with the witness map and the
     G1 MSMs on the card: setup on the host, the assignment from the main
-    path's packed export, prove(g1_backend="gpu") identical to
+    path's packed export, prove() at its default backend ("auto" on the
+    default CUDA msm_device: "gpu") identical to
     prove(g1_backend="native") with the same r and s, its launches those
     of the four MSMs and of one witness map with its tables' set-up, h
     from the card equal to the native C's, verify True and False on a
@@ -602,8 +612,8 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
     assert len(z) == compiled.num_variables
     r, s = (int.from_bytes(rng.bytes(32), "little") % R for _ in range(2))
 
-    proof, gpu_s, launches = counted_run(
-        counted, lambda: groth16.prove(pk, compiled, z, r=r, s=s, g1_backend="gpu"))
+    assert groth16.resolve_g1_backend() == "gpu", "prove's default backend is not the card's"
+    proof, gpu_s, launches = counted_run(counted, lambda: groth16.prove(pk, compiled, z, r=r, s=s))
     t0 = time.perf_counter()
     groth16.prove(pk, compiled, z, r=r, s=s, g1_backend="gpu")
     torch.cuda.synchronize()
@@ -629,7 +639,7 @@ def groth16_path(port, dev, compiled, packed, instance, counted):
     expect |= witness_map_launches(counted, compiled)
     assert launches == expect, (launches, expect)
     wm_ms = check_h_on_card(compiled, z, dev, h)
-    log(f"groth16 prove, g1_backend=gpu: {gpu_s:.3f} s (first, incl. the CRS "
+    log(f"groth16 prove, default g1_backend (auto: gpu): {gpu_s:.3f} s (first, incl. the CRS "
         f"conversion and the witness map's tables), {warm_s:.3f} s (second); native: "
         f"{native_s:.3f} s; identical proofs; verify True "
         f"({verify_s:.3f} s), wrong input / tampered proof False; launches {launches}; "
@@ -749,8 +759,9 @@ def cli_phase(dev, counted):
     """`python -m falcon_r1cs_tpu_torch` in-process on the card, one
     command after another (CLI_COMMANDS), every count set to 0 just before
     each and read just after: each returns 0; aggregate and pok-sig launch
-    K1, and a command with its G1 MSMs on the card (`--g1-backend gpu`:
-    pok-sig's prove, aggregate's prove_batch) K4, K5 and K6.  Then
+    K1, and a command that proves (pok-sig, and aggregate with --prove),
+    at its default backend, every kernel of PROVE_KERNELS: its witness
+    maps and G1 MSMs ran on the card.  Then
     entry(): its step on the card launches K1 twice and equals
     entry("cpu").  Returns {command: (seconds, launches)}."""
     from falcon_r1cs_tpu_torch.__main__ import main as cli
@@ -769,10 +780,8 @@ def cli_phase(dev, counted):
         log(f"cli {cmd}: rc 0, {seconds:.1f} s, launches {runs[cmd][1]}")
         if argv[0] in ("aggregate", "pok-sig"):
             assert runs[cmd][1].get("ntt_hints_kernel", 0) > 0, (cmd, runs[cmd])
-        if "gpu" in argv:
-            assert all(runs[cmd][1].get(k, 0) > 0 for k in (
-                "signed_digits_kernel", "mont_mul_kernel", "point_add_kernel",
-                "point_add_aff_kernel", "bucket_level_kernel")), (cmd, runs[cmd])
+        if argv[0] == "pok-sig" or "--prove" in argv:
+            assert all(runs[cmd][1].get(k, 0) > 0 for k in PROVE_KERNELS), (cmd, runs[cmd])
     step, args = entry(dev)
     got, seconds, launches = counted_run(counted, lambda: step(*args))
     assert launches == dict.fromkeys(counted, 0) | {"ntt_hints_kernel": 2}, launches

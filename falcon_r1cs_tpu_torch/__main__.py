@@ -17,9 +17,11 @@ commands, defaults and exit codes (the reference exposes `cargo run
 
 pok-sig, aggregate and verify run on the card: `--device` (default cuda)
 names the torch device, and `--device cpu` asks for the CPU.  pok-sig and
-aggregate take `--g1-backend {auto,native,gpu,python}`, the G1 MSMs'
-backend of the proof (gpu: on the device).  Without a card and without
-`--device cpu` a command exits with code 2 and says so.
+aggregate take `--g1-backend {auto,native,gpu,python}`, the backend of
+the proof's witness map and G1 MSMs: "auto" (the default) is the card on
+`--device cuda` (gpu) and the host C on `--device cpu` (native);
+`--g1-backend native` asks for the host C on any device.  Without a card
+and without `--device cpu` a command exits with code 2 and says so.
 """
 
 from __future__ import annotations

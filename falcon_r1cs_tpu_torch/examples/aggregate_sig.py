@@ -7,8 +7,10 @@ K wire-format (pk, msg, sig) triples -> one device pass
 R1CS witness of the verify-with-NTT circuit and its packed canonical
 export -> a batched CRT satisfiability verdict on the device, from the
 packed export.  `--prove K` also proves the first K signatures as a batch
-over one CRS (`prove_batch`, G1 MSMs on `--g1-backend`).  The port's
-counterpart of the repo's `examples/aggregate_sig.py`.
+over one CRS (`prove_batch`, the witness maps and G1 MSMs on
+`--g1-backend`: "auto", the default, is the card on `--device cuda`, a
+prove an assignment, and the host C's batched multi-MSMs on `--device
+cpu`).  The port's counterpart of the repo's `examples/aggregate_sig.py`.
 
     python -m falcon_r1cs_tpu_torch aggregate [--k 64] [--n 512]
         [--prove K] [--device cuda] [--g1-backend auto|native|gpu|python]
@@ -90,6 +92,7 @@ def main(argv=None):
     if args.prove:
         # proof-side aggregation: K proofs over ONE CRS via prove_batch
         from ..snark import prove_batch, verify
+        from ..snark.groth16 import resolve_g1_backend
         from ..snark.points import ints_to_limbs, packed_to_limb_rows
 
         kp = min(args.prove, args.k)
@@ -104,12 +107,12 @@ def main(argv=None):
             )
             for i in range(kp)
         ]
+        backend = resolve_g1_backend(args.g1_backend, dev)
         t0 = time.time()
-        proofs = prove_batch(pk, compiled, assigns, g1_backend=args.g1_backend,
-                             msm_device=dev)
+        proofs = prove_batch(pk, compiled, assigns, g1_backend=backend, msm_device=dev)
         synchronize(dev)
         dt = time.time() - t0
-        print(f"prove_batch K={kp} (G1 MSMs {args.g1_backend}): {dt:.2f}s "
+        print(f"prove_batch K={kp} (G1 MSMs {backend}): {dt:.2f}s "
               f"({kp/dt:.2f} proofs/s)")
         t0 = time.time()
         assert all(

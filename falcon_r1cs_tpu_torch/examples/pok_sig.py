@@ -17,8 +17,11 @@ The port's counterpart of the repo's `examples/pok_sig.py`:
         [--g1-backend auto|native|gpu|python]
 
 `--g1-backend` is passed to `prove(g1_backend=..., msm_device=device)`:
-"gpu" runs the four G1 MSMs on the device (snark/gpu_msm.py), "auto" lets
-snark/backend_policy.py choose (the native C when it is built).
+"gpu" runs the witness map and the four G1 MSMs on the device
+(snark/gpu_qap.py, snark/gpu_msm.py), "native" in the host C; "auto" (the
+default) follows the device, as snark/backend_policy.py says: gpu on
+`--device cuda`, native on `--device cpu`.  The prove line names the
+backend it resolved to.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from ..params import get_params
 from ..parallel.sat_check import ResidueSystem
 from ..r1cs.coo import cache_dir, compile_circuit
 from ..snark import prove, setup, verify
-from ..snark.groth16 import load_pk, save_pk
+from ..snark.groth16 import load_pk, resolve_g1_backend, save_pk
 from ..snark.points import ints_to_limbs, packed_to_limb_rows
 from ..utils.device import entry_device
 from ..witness import interleave_witness, packer_ntt, witness_engine
@@ -123,9 +126,10 @@ def main(argv=None):
     assignment_limbs = np.concatenate(
         [ints_to_limbs(public_inputs, 4), packed_to_limb_rows(packed[0])]
     )
-    proof = prove(pk, compiled, assignment_limbs, g1_backend=args.g1_backend, msm_device=dev)
+    backend = resolve_g1_backend(args.g1_backend, dev)
+    proof = prove(pk, compiled, assignment_limbs, g1_backend=backend, msm_device=dev)
     synchronize(dev)
-    print(f"Groth16 prove (device-packed witness, G1 MSMs {args.g1_backend}): "
+    print(f"Groth16 prove (device-packed witness, G1 MSMs {backend}): "
           f"{time.time()-t0:.2f}s")
 
     # verify (pok_sig.rs:39-47)

@@ -1,37 +1,33 @@
-"""G1-MSM backend policy of the port's prover.
+"""G1-MSM backend policy of the port's prover: the backend follows the
+device.
 
-The port's copy of `falcon_r1cs_tpu/snark/backend_policy.py` with the CUDA
-engine (snark/gpu_msm.py, backend "gpu") in the place of the TPU engine.
-The policy is the JAX package's: the native C backend is chosen whenever
-it is built, the device engine only on request or when the C backend is
-absent and a CUDA card is present, and pure Python last.
+`prove(..., g1_backend="auto", msm_device=...)` and `prove_batch` resolve
+"auto" here.  A CUDA `msm_device` (the default, as a string, "cuda:0" or
+a `torch.device`) gives "gpu": the witness map runs on the Fr kernels
+(snark/gpu_qap.py) and the four G1 MSMs on the CUDA engine
+(snark/gpu_msm.py).  On one H100 a Falcon-512 prove takes about half the
+time of the native C prover's on the card's host (PERF.md §5), so the
+card is the default at every batch size.  Without a card a CUDA
+`msm_device` raises `DeviceUnavailableError`, naming `msm_device="cpu"`:
+nothing falls back to the host on its own.  A CPU `msm_device` gives the
+host: the native C backend when it is built, else pure Python.
 
-`GPU_WINS_FROM_K` is the smallest K (batched proofs over one CRS) at which
-the CUDA MSM beats the host C per MSM on the card's host; None until a
-measurement on that host finds such a crossover (PERF.md holds the
-measured MSM times of both).  Callers pick a backend explicitly with
+The JAX package's policy differs: it picks the host C whenever it is
+built, because on its TPU host the C matched or beat the chip's MSM at
+every batch size it measured.  Callers pick a backend explicitly with
 `prove(..., g1_backend=...)`; there is no environment override.
 """
 
 from __future__ import annotations
 
-GPU_WINS_FROM_K: int | None = None
+from ..utils.device import entry_device
 
 
-def choose_g1_backend(
-    native_available: bool,
-    gpu_ok: bool,
-    K: int = 1,
-) -> str:
-    """Resolve "auto" to a concrete G1-MSM backend.
+def choose_g1_backend(native_available: bool, msm_device="cuda") -> str:
+    """Resolve "auto" to a concrete G1-MSM backend for `msm_device`.
 
-    Pure function of its inputs; callers feed in availability facts so no
-    probe runs unless its answer can change the outcome.
-    """
-    if native_available and (GPU_WINS_FROM_K is None or K < GPU_WINS_FROM_K):
-        return "native"
-    if gpu_ok:
+    Pure function of its inputs but for the card check of a CUDA device
+    (`utils.device.entry_device`), which raises without a card."""
+    if entry_device(msm_device).type == "cuda":
         return "gpu"
-    if native_available:
-        return "native"
-    return "python"
+    return "native" if native_available else "python"

@@ -27,11 +27,14 @@ artifacts.  [Groth16]:
 
 Host path is pure Python (correctness oracle); the MSM/FFT hot loops
 dispatch to native/groth16_native.c when available (set
-use_native=False to force the reference path), and the four G1 MSMs of a
-proof to the CUDA engine (gpu_msm.py) with g1_backend="gpu".
+use_native=False to force the reference path).  On a CUDA msm_device
+(the default) the witness map and the four G1 MSMs of a proof run on the
+card (gpu_qap.py, gpu_msm.py: g1_backend "gpu", which "auto" resolves
+to there); the G2 MSM stays on the host.
 
-The port's copy of `falcon_r1cs_tpu/snark/groth16.py`; the one change is
-the prover hook, where the backend "gpu" takes the place of "tpu".
+The port's copy of `falcon_r1cs_tpu/snark/groth16.py`; the changes are
+the prover hook, where the backend "gpu" takes the place of "tpu", and
+the policy behind "auto" (backend_policy.py), which follows msm_device.
 """
 
 from __future__ import annotations
@@ -190,30 +193,21 @@ def prove(pk: ProvingKey, compiled, assignment, r: int | None = None,
 
     Mirrors `create_random_proof` (pok_sig.rs:37).  r/s override the
     blinding randomness for deterministic tests.  g1_backend selects who
-    runs the G1 MSMs: "auto" resolves through backend_policy.
-    choose_g1_backend (the host C when it is built; the CUDA engine when
-    it is not and a card is present), or pass "native"/"gpu"/"python"
-    explicitly ("gpu" = snark/gpu_msm.py on `msm_device`, and on a CUDA
-    `msm_device` the witness map there too, snark/gpu_qap.py; the G2 MSMs
-    still follow use_native).
+    runs the witness map and the G1 MSMs (`resolve_g1_backend`): "auto"
+    follows `msm_device`, the card on a CUDA device ("gpu") and the host
+    on the CPU ("native" when the C is built, else "python"); or pass
+    "native"/"gpu"/"python" explicitly ("gpu" = snark/gpu_msm.py on
+    `msm_device`, and on a CUDA `msm_device` the witness map there too,
+    snark/gpu_qap.py; "native" and "python" never look at `msm_device`).
+    A CUDA `msm_device` without a card raises DeviceUnavailableError
+    wherever the backend is "gpu".  The G2 MSM follows use_native.
     """
     if r is None:
         r = secrets.randbelow(R)
     if s is None:
         s = secrets.randbelow(R)
     native = _native() if use_native else None
-    if g1_backend == "auto":
-        from .backend_policy import choose_g1_backend
-
-        gpu_ok = False
-        if native is None:
-            # the card can only change the outcome when C is absent
-            import torch
-
-            gpu_ok = torch.cuda.is_available()
-        g1_backend = choose_g1_backend(
-            native_available=native is not None, gpu_ok=gpu_ok, K=1
-        )
+    g1_backend = resolve_g1_backend(g1_backend, msm_device, use_native)
 
     # assignment may be a (N, 4) u64 canonical limb matrix (e.g. derived
     # from the device packer via points.packed_to_limb_rows): the native
@@ -247,6 +241,11 @@ def prove(pk: ProvingKey, compiled, assignment, r: int | None = None,
         # that gpu_qap's plain versions would, in far less time
         h, h_top = witness_map_dispatch(compiled, z, native)
     assert h_top == 0, "assignment does not satisfy the R1CS"
+    if g1_backend == "python" and isinstance(h, _np.ndarray):
+        # the host C's h comes as u64 limb rows; the Python MSM takes ints
+        from .points import limbs_to_int
+
+        h = [limbs_to_int(row) for row in h]
 
     if native is not None:
         g1msm, g2msm = native.g1_msm, native.g2_msm
@@ -282,6 +281,25 @@ def prove(pk: ProvingKey, compiled, assignment, r: int | None = None,
     gc_h = g1msm(pk.h_query, h)
 
     return _assemble(pk, native, ga, gb1, gb2, gc_l, gc_h, r, s)
+
+
+def resolve_g1_backend(g1_backend: str = "auto", msm_device="cuda",
+                       use_native: bool = True) -> str:
+    """The G1 backend that prove and prove_batch run for these arguments:
+    "auto" resolved by backend_policy.choose_g1_backend for msm_device,
+    any other as given.  Where it is "gpu", a CUDA msm_device is checked
+    for a card (utils.device.entry_device raises DeviceUnavailableError
+    without one) before any work."""
+    if g1_backend == "auto":
+        from .backend_policy import choose_g1_backend
+
+        native_built = use_native and _native() is not None
+        return choose_g1_backend(native_built, msm_device)
+    if g1_backend == "gpu":
+        from ..utils.device import entry_device
+
+        entry_device(msm_device)
+    return g1_backend
 
 
 def _assemble(pk: ProvingKey, native, ga, gb1, gb2, gc_l, gc_h, r: int,
@@ -351,21 +369,24 @@ def prove_batch(pk: ProvingKey, compiled, assignments, rs=None, ss=None,
 
     assignments: list of K wire vectors (each an int sequence or an
     (N, 4) u64 canonical limb matrix).  rs/ss override blinding
-    randomness for deterministic tests.  g1_backend is prove's: with the
-    native C built, "auto" and "native" run the batched multi-MSMs (prove's
-    "auto" picks the C whenever it is built); any other backend, or no C,
-    proves each assignment with `prove` (G1 MSMs on that backend, "gpu"
-    on `msm_device`).  Returns a list of K Proofs.
+    randomness for deterministic tests.  g1_backend is prove's, resolved
+    as there (`resolve_g1_backend`): "native" with the C built (what
+    "auto" gives on a CPU msm_device) runs the batched multi-MSMs; any
+    other backend, or no C, proves each assignment with `prove` ("gpu",
+    what "auto" gives on a CUDA msm_device: the witness map and the G1
+    MSMs of each proof on the card, as the JAX package's device backend
+    proves one assignment at a time).  Returns a list of K Proofs.
     """
     import numpy as _np
 
     K = len(assignments)
     native = _native() if use_native else None
+    g1_backend = resolve_g1_backend(g1_backend, msm_device, use_native)
     if rs is None:
         rs = [secrets.randbelow(R) for _ in range(K)]
     if ss is None:
         ss = [secrets.randbelow(R) for _ in range(K)]
-    if native is None or g1_backend not in ("auto", "native"):
+    if native is None or g1_backend != "native":
         return [
             prove(pk, compiled, a, r=rs[k], s=ss[k], use_native=use_native,
                   g1_backend=g1_backend, msm_device=msm_device)

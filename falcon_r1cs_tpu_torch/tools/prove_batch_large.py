@@ -6,14 +6,15 @@ instances from `make_instance(np.random.default_rng(11), ...)`, their
 witnesses in one engine call on the device, one CRS (as `prove_large`
 finds or makes it); a warm-up `prove_batch` of two; then one single
 `prove`, `prove_batch` of all K, and one single `prove` again, whose
-mean stands beside the batch's seconds a proof.  `--g1-backend native`
-runs the host C's K-fold multi-MSMs; `gpu` makes `prove_batch` prove
-each assignment with `prove`, its four G1 MSMs on the device.  Every
-proof must verify, the batch's must equal the single proves' with the
-same r and s, and a tampered public input must be rejected.
+mean stands beside the batch's seconds a proof.  `--g1-backend gpu` (the
+default) makes `prove_batch` prove each assignment with `prove`, its
+witness map and four G1 MSMs on the device; `native` runs the host C's
+K-fold multi-MSMs.  Every proof must verify, the batch's must equal the
+single proves' with the same r and s, and a tampered public input must
+be rejected.
 
     python -m falcon_r1cs_tpu_torch.tools.prove_batch_large [dual|schoolbook] [K]
-        [--n 1024] [--g1-backend native|gpu] [--device cuda] [--crs PATH]
+        [--n 1024] [--g1-backend gpu|native] [--device cuda] [--crs PATH]
         [--save-crs]
 """
 
@@ -37,7 +38,7 @@ from .prove_large import CIRCUITS, G1_BACKENDS, Stages, assignments, peak_gib, p
 INSTANCE_SEED = 11
 
 
-def run(which: str = "schoolbook", K: int = 8, n: int = 1024, g1_backend: str = "native",
+def run(which: str = "schoolbook", K: int = 8, n: int = 1024, g1_backend: str = "gpu",
         device="cuda", crs=None, save_crs: bool = False, toxic=None, rs=None, ss=None,
         pk=None, log=print) -> dict:
     """K proofs of the `which` circuit at Falcon-n over one CRS.
@@ -103,7 +104,7 @@ def main(argv=None) -> int:
     ap.add_argument("which", nargs="?", choices=tuple(CIRCUITS), default="schoolbook")
     ap.add_argument("K", nargs="?", type=int, default=8)
     ap.add_argument("--n", type=int, choices=(512, 1024), default=1024)
-    ap.add_argument("--g1-backend", choices=G1_BACKENDS, default="native")
+    ap.add_argument("--g1-backend", choices=G1_BACKENDS, default="gpu")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--crs", default=None, help="a .pk.npz to load instead of a setup")
     ap.add_argument("--save-crs", action="store_true",

@@ -18,6 +18,7 @@ from falcon_r1cs_tpu_torch.__main__ import main
 from falcon_r1cs_tpu_torch.entry import _example_batch, entry
 from falcon_r1cs_tpu_torch.examples import pok_sig
 from falcon_r1cs_tpu_torch.r1cs import coo
+from falcon_r1cs_tpu_torch.tools import default_route
 from falcon_r1cs_tpu_torch.utils.device import DeviceUnavailableError
 
 
@@ -66,6 +67,8 @@ def test_aggregate_on_cpu(capsys, port_cache):
     out = capsys.readouterr().out
     assert "batched CRT satisfiability: all 4 valid = True" in out
     assert "all 2 proofs verify" in out
+    # "auto" on the CPU, resolved, in the line tools.default_route reads
+    assert default_route.COMMANDS["aggregate --prove 2"][1].search(out).group(1) == "native"
     assert (port_cache / "FalconNTTVerificationCircuit_512.r1cs").exists()
     assert (port_cache / "FalconNTTVerificationCircuit_512.pk.npz").exists()
 
@@ -79,6 +82,8 @@ def test_pok_sig_on_cpu(capsys, port_cache):
         out = capsys.readouterr().out
         assert ("Groth16 setup" in out) == first and ("CRS load (cached)" in out) != first
         assert "R1CS satisfied (device CRT check): True" in out
+        # "auto" on the CPU, resolved, in the line tools.default_route reads
+        assert default_route.COMMANDS["pok-sig"][1].search(out).group(1) == "native"
         assert out.rstrip().endswith("tampered public input rejected")
 
 

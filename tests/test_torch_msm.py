@@ -6,6 +6,7 @@ prover.  Exact results: every comparison is equality."""
 
 import numpy as np
 import pytest
+import torch
 
 import falcon_r1cs_tpu.snark.tpu_msm as tm
 import falcon_r1cs_tpu.snark.tpu_msm_blocks as tmb
@@ -18,7 +19,8 @@ from falcon_r1cs_tpu_torch.r1cs import CompiledR1CS, ConstraintSystem
 from falcon_r1cs_tpu_torch.snark import bls12_381 as bls
 from falcon_r1cs_tpu_torch.snark import groth16, gpu_msm
 from falcon_r1cs_tpu_torch.snark.backend_policy import choose_g1_backend
-from falcon_r1cs_tpu_torch.snark.points import G1Array
+from falcon_r1cs_tpu_torch.snark.points import G1Array, ints_to_limbs
+from falcon_r1cs_tpu_torch.utils.device import DeviceUnavailableError
 
 rng = np.random.default_rng(20261017)
 
@@ -180,7 +182,104 @@ def test_jax_saved_pk_loads_into_port(toy, tmp_path):
     assert groth16.verify(pk.vk, [1, 35], got)
 
 
-def test_backend_policy():
-    assert choose_g1_backend(native_available=True, gpu_ok=True) == "native"
-    assert choose_g1_backend(native_available=False, gpu_ok=True) == "gpu"
-    assert choose_g1_backend(native_available=False, gpu_ok=False) == "python"
+@pytest.mark.parametrize("msm_device, native_built, want", [
+    ("cpu", True, "native"),
+    ("cpu", False, "python"),
+    ("cuda", True, "gpu"),
+    ("cuda", False, "gpu"),
+    ("cuda:0", True, "gpu"),
+    (torch.device("cuda"), True, "gpu"),
+    (torch.device("cpu"), True, "native"),
+])
+def test_backend_policy(msm_device, native_built, want, monkeypatch):
+    """The backend follows msm_device: the card on any CUDA device, given
+    as a string, with an index or as a torch.device, whether the host C is
+    built or not; the host C on the CPU, pure Python without it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert choose_g1_backend(native_built, msm_device) == want
+
+
+def test_backend_policy_needs_a_card_for_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
+        choose_g1_backend(True, "cuda")
+    assert choose_g1_backend(True, "cpu") == "native"
+
+
+def test_prove_auto_on_cpu_matches_jax_native(toy):
+    """g1_backend "auto" on a CPU msm_device is the host C prover: the
+    JAX package's native proof with the same toxic waste, r and s."""
+    compiled, pk, _, _, want = toy
+    got = groth16.prove(pk, compiled, [1, 35, 3, 9, 27], r=21, s=22, msm_device="cpu")
+    assert (got.a, got.b, got.c) == (want.a, want.b, want.c)
+    assert groth16.resolve_g1_backend("auto", "cpu") == "native"
+
+
+def _no_prover_work(monkeypatch):
+    """Make every witness map and MSM of the prover fail the test."""
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the prover ran before its device check")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(groth16, "witness_map_dispatch", forbidden)
+    monkeypatch.setattr(gpu_msm, "g1_msm_gpu", forbidden)
+    monkeypatch.setattr(groth16.native_backend, "g1_msm", forbidden)
+    monkeypatch.setattr(groth16.native_backend, "g1_msm_multi", forbidden)
+
+
+@pytest.mark.parametrize("native_built", [True, False])
+@pytest.mark.parametrize("entry", ["prove", "prove_batch"])
+@pytest.mark.parametrize("g1_backend, msm_device", [
+    ("auto", "cuda"), ("auto", "cuda:0"), ("gpu", "cuda"),
+])
+def test_card_backend_without_a_card_raises(toy, entry, native_built, g1_backend, msm_device,
+                                            monkeypatch):
+    """A CUDA msm_device under "auto" (the default) or "gpu" raises
+    DeviceUnavailableError without a card, before any witness map or MSM,
+    whether the host C is built or not: no quiet fallback to the host."""
+    compiled, pk, _, _, _ = toy
+    _no_prover_work(monkeypatch)
+    if not native_built:
+        monkeypatch.setattr(groth16, "_native", lambda: None)
+    z = [1, 35, 3, 9, 27]
+    with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
+        if entry == "prove":
+            groth16.prove(pk, compiled, z, r=21, s=22, g1_backend=g1_backend,
+                          msm_device=msm_device)
+        else:
+            groth16.prove_batch(pk, compiled, [z, z], rs=[21, 1], ss=[22, 2],
+                                g1_backend=g1_backend, msm_device=msm_device)
+
+
+def test_host_backends_ignore_msm_device(toy, monkeypatch):
+    """An explicit "native" or "python" never looks at msm_device: the
+    default "cuda" without a card proves on the host.  "python" with the
+    host C built takes the C's h as limb rows (the JAX package's prove
+    raises OverflowError there)."""
+    compiled, pk, _, _, want = toy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for backend, use_native in (("native", True), ("python", True), ("python", False)):
+        got = groth16.prove(pk, compiled, [1, 35, 3, 9, 27], r=21, s=22, g1_backend=backend,
+                            use_native=use_native)
+        assert (got.a, got.b, got.c) == (want.a, want.b, want.c), backend
+
+
+# toy assignments: x, public out = x^3 + x + 5, x^2, x^3
+TOY_ZS = [[1, 35, 3, 9, 27], [1, 15, 2, 4, 8], [1, 73, 4, 16, 64]]
+
+
+@pytest.mark.parametrize("g1_backend, use_native", [("auto", True), ("python", False)])
+def test_prove_batch_on_cpu_matches_jax(toy, g1_backend, use_native):
+    """prove_batch on a CPU msm_device against the JAX package's
+    prove_batch (its native C multi-MSMs) with the same r and s: "auto"
+    runs the host C's batch, "python" without the C a prove an
+    assignment (the branch a CUDA msm_device takes with "gpu"); the
+    assignments mix int lists and u64 limb rows."""
+    compiled, pk, jcompiled, jpk, _ = toy
+    rs, ss = [21, 31, 41], [22, 32, 42]
+    want = jax_groth16.prove_batch(jpk, jcompiled, TOY_ZS, rs=rs, ss=ss)
+    zs = [TOY_ZS[0], ints_to_limbs(TOY_ZS[1], 4), TOY_ZS[2]]
+    got = groth16.prove_batch(pk, compiled, zs, rs=rs, ss=ss, g1_backend=g1_backend,
+                              use_native=use_native, msm_device="cpu")
+    assert [(p.a, p.b, p.c) for p in got] == [(p.a, p.b, p.c) for p in want]
+    assert all(groth16.verify(pk.vk, z[:2], p) for z, p in zip(TOY_ZS, got))

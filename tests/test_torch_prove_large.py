@@ -27,6 +27,7 @@ from falcon_r1cs_tpu_torch.falcon import make_instance
 from falcon_r1cs_tpu_torch.r1cs import coo
 from falcon_r1cs_tpu_torch.snark import R, groth16, gpu_msm
 from falcon_r1cs_tpu_torch.tools import (
+    default_route,
     msm_multi,
     pp_vs_dp,
     profile_prove,
@@ -290,6 +291,40 @@ def test_half_digit_scalars_hit_half():
         assert all(0 < s < R for s in tricky)
         digits = gpu_msm._window_digits_signed(jax_ints_to_limbs(tricky, 4), w)
         assert (digits[:, :4] == 1 << (w - 1)).any(axis=0).all()
+
+
+@pytest.mark.parametrize("tool, argv", [
+    (prove_large, ["dual"]),
+    (prove_batch_large, ["schoolbook", "8"]),
+    (profile_prove, ["1"]),
+    (prove_batch, ["16", "2"]),
+])
+def test_prover_tools_default_to_the_card_backend(tool, argv, monkeypatch):
+    """Each prover tool's run() and its parsed --g1-backend default to
+    "gpu" (the witness map and the G1 MSMs on the card); --g1-backend
+    native asks for the host C."""
+    import inspect
+
+    signature = inspect.signature(tool.run)
+    assert signature.parameters["g1_backend"].default == "gpu"
+    seen = []
+
+    def no_card(*args, **kwargs):
+        seen.append(signature.bind(*args, **kwargs).arguments["g1_backend"])
+        raise DeviceUnavailableError("no card")
+
+    monkeypatch.setattr(tool, "run", no_card)
+    assert tool.main(argv) == 2
+    assert tool.main(argv + ["--g1-backend", "native"]) == 2
+    assert seen == ["gpu", "native"]
+
+
+def test_default_route_needs_a_card(monkeypatch, capsys):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert default_route.main(["--n", "512"]) == 2
+    assert "--device cpu" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("tool, argv", [
